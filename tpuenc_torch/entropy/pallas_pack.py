@@ -1,0 +1,529 @@
+"""Entropy bit packing on the device: P1 (K2), P2 (K3), P3 (K4), P4 (K5).
+
+Counterpart of ``tpuenc/entropy/pallas_pack.py``.  The four stages turn a
+coefficient-major (64, B) int16 block stream into one raw bit
+concatenation of the blocks' Huffman codes (no byte alignment: the host
+realigns, pads and stuffs each restart segment):
+
+* P1, :func:`pack_blocks` (K2): one MSB-aligned bit string per block.
+* P2, :func:`merge_chunks` (K3): 128 substreams of consecutive blocks,
+  each cut into chunks merged into one row.
+* P3, :func:`fold_rows` (K4): each substream's chunk rows folded into one
+  row (skipped when :func:`fold_plan` says so, as on the TPU).
+* P4, :func:`concat_rows` (K5): the rows placed at their bit offsets in
+  one stream.
+
+Every stage keeps the TPU version's capacities (:func:`block_caps`,
+:func:`chunk_caps`, :func:`fold_caps`) and sets its overflow flag exactly
+where the TPU kernel sets its own, so the budget ladder learns the same
+rung.  The kernels are CUDA C++ (``csrc/``); each has a plain PyTorch
+version here (``*_ref``) with the same contract, which the wrappers run
+for CPU tensors.  Bit words travel as int32 tensors holding the uint32 bit
+pattern (PyTorch has no CPU shifts for uint32); the plain versions compute
+in int64 masked to 32 bits.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import cuda_lib
+from .device_pack import ScanSpec
+
+MASK32 = 0xFFFFFFFF
+
+
+# ---------------------------------------------------------------------------
+# Capacity schedules and plans (pure Python, identical to the TPU version).
+# ---------------------------------------------------------------------------
+
+def block_caps(budget_words: int):
+    """Chunk word capacities for the six in-block merge levels (windows of
+    2, 4, ..., 64 slot items).  Items are single words, so level k holds at
+    most 2^k words and the early caps never overflow."""
+    caps = []
+    c = 1
+    for k in range(1, 7):
+        n_slots = 1 << k
+        limit = max(5, (budget_words * n_slots + 63) // 64 + 2)
+        c = min(2 * c, limit)
+        caps.append(c)
+    return caps
+
+
+def final_block_cap(budget: int) -> int:
+    return block_caps(budget)[-1] + 1
+
+
+def chunk_caps(cap_in: int, n_chunks: int, budget: int):
+    """Capacity schedule for merging ``n_chunks`` single-block chunks of
+    ``cap_in`` words (P2)."""
+    caps = []
+    c = cap_in
+    blocks = 1
+    n = n_chunks
+    while n > 1:
+        blocks *= 2
+        # Absolute burst slack, saturating at 256 words.
+        c = min(2 * c, budget * blocks + 16 * min(blocks, 16))
+        caps.append(c)
+        n //= 2
+    return caps
+
+
+def fold_caps(cap_in: int, n_chunks: int, budget_eff: int):
+    """Capacity schedule for the P3 row fold: like :func:`chunk_caps` but
+    every cap is rounded up to a multiple of 128 words."""
+    caps = []
+    c = cap_in
+    blocks = 1
+    n = n_chunks
+    while n > 1:
+        blocks *= 2
+        c = min(2 * c, budget_eff * blocks + 256)
+        c = -(-c // 128) * 128
+        caps.append(c)
+        n //= 2
+    return caps
+
+
+def fold_plan(n2p: int, capP: int, n_sub: int, budget_eff: int):
+    """The TPU's P3 plan: ``(s_tile, caps)``, or None when even one
+    substream per step would not fit its 6 MiB VMEM budget, in which case
+    P3 is skipped and P4 takes every chunk row.  The port follows the same
+    decision so that it runs, and flags, the same stages; it does not use
+    ``s_tile``."""
+    caps = fold_caps(capP, n2p, budget_eff)
+
+    def est(s):
+        b = 4 * s * n2p * capP + 4 * s * caps[-1]
+        rows = n2p
+        for c in caps:
+            rows //= 2
+            b += 16 * s * rows * c
+        return b
+
+    s = min(16, n_sub)
+    while s >= 1:
+        if n_sub % s == 0 and est(s) <= 6 << 20:
+            return s, caps
+        s //= 2
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Helpers of the plain versions: int64 arithmetic on 32-bit words.
+# ---------------------------------------------------------------------------
+
+def _to_i32(x):
+    """int64 values in [0, 2^32) -> int32 tensor with the same bits."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def _u32(x):
+    """int32 bit pattern -> int64 value in [0, 2^32)."""
+    return x.to(torch.int64) & MASK32
+
+
+def _shl(x, n):
+    """``x << n`` on 32-bit words with pallas_pack._shl's guards."""
+    return torch.where(n >= 32, 0, (x << n.clamp(0, 31)) & MASK32)
+
+
+def _mask(n):
+    return torch.where(n >= 32, MASK32, (torch.ones_like(n) << n.clamp(0, 31)) - 1)
+
+
+def _bit_length(av):
+    """Magnitude category of a non-negative int64 tensor (< 2^31)."""
+    size = torch.zeros_like(av)
+    v = av.clone()
+    for s in (16, 8, 4, 2, 1):
+        big = v >= (1 << s)
+        size = torch.where(big, size + s, size)
+        v = torch.where(big, v >> s, v)
+    return torch.where(av == 0, 0, size + 1)
+
+
+def _scatter_words(n_rows: int, cap: int, row_idx, off, words, active):
+    """OR MSB-aligned 32-bit ``words`` (int64) starting at bit ``off`` of
+    row ``row_idx`` into a zeroed (n_rows, cap) int32 array; bits past
+    ``cap`` words are dropped.  Sources never share bits, so a sum is an
+    OR."""
+    d = off >> 5
+    ph = off & 31
+    hi = torch.where(active, words >> ph, 0)
+    lo = torch.where(active & (ph != 0), (words << (32 - ph)) & MASK32, 0)
+    width = cap + 1  # column ``cap`` collects what is dropped
+    out = torch.zeros(n_rows * width, dtype=torch.int64, device=words.device)
+    base = row_idx * width
+    out.index_add_(0, (base + d.clamp(max=cap)).reshape(-1), hi.reshape(-1))
+    out.index_add_(0, (base + (d + 1).clamp(max=cap)).reshape(-1),
+                   lo.reshape(-1))
+    return _to_i32(out.view(n_rows, width)[:, :cap] & MASK32)
+
+
+# ---------------------------------------------------------------------------
+# P1 (K2): per-block bit strings.
+# ---------------------------------------------------------------------------
+
+def _p1_caps(budget: int):
+    caps = block_caps(budget)
+    return caps[2], caps[3], caps[4], caps[5], caps[5] + 1
+
+
+def _check_spec(spec: ScanSpec):
+    if not spec.emit_ac or spec.spectral_start >= spec.spectral_end:
+        raise NotImplementedError(
+            "DC-only and empty-band scans (progressive) are not ported yet: "
+            "ROADMAP M6"
+        )
+    if len(spec.dc_tab_pattern) > 16:
+        raise ValueError("table pattern longer than 16 blocks")
+
+
+def pack_blocks_ref(q, dcdiff, dc_tab, ac_tab, spec: ScanSpec, Bp: int,
+                    budget: int):
+    """Plain version of K2.
+
+    ``q``: int16 (64, B) zigzag coefficients; ``dcdiff``: int32 (B,) DC
+    differences; ``dc_tab``: int32 (1, 128) [table*16 + size] and
+    ``ac_tab``: int32 (T, 256) [symbol], both ``size << 16 | code``;
+    ``Bp >= B`` output rows; ``budget``: the block-level budget (callers
+    pass ``max(budget, 16)``).  Returns ``(words int32 (Bp, capB), lens
+    int32 (Bp,), overflow int32 (1,))``, capB = final_block_cap(budget)."""
+    _check_spec(spec)
+    dev = q.device
+    B = q.shape[1]
+    ss, se = spec.spectral_start, spec.spectral_end
+    cap8, cap16, cap32, cap64, capB = _p1_caps(budget)
+
+    qq = torch.zeros((64, Bp), dtype=torch.int64, device=dev)
+    qq[:, :B] = q
+    diff = torch.zeros(Bp, dtype=torch.int64, device=dev)
+    diff[:B] = dcdiff
+    bidx = torch.arange(Bp, device=dev)
+    valid = bidx < B
+    slot = torch.arange(64, device=dev)[:, None]
+    pos = bidx % len(spec.dc_tab_pattern)
+    dct = torch.zeros(Bp, dtype=torch.int64, device=dev)
+    act = torch.zeros(Bp, dtype=torch.int64, device=dev)
+    for p, (d, a) in enumerate(zip(spec.dc_tab_pattern, spec.ac_tab_pattern)):
+        dct = torch.where(pos == p, d, dct)
+        act = torch.where(pos == p, a, act)
+    dcl = _u32(dc_tab.reshape(-1))
+    acl = _u32(ac_tab)
+
+    lens = torch.zeros((64, Bp), dtype=torch.int64, device=dev)
+    words = torch.zeros((64, Bp), dtype=torch.int64, device=dev)
+    if spec.emit_dc:
+        size = _bit_length(diff.abs())
+        extra = (diff - (diff < 0).long()) & _mask(size)
+        lut = torch.where(size < 16, dcl[dct * 16 + size.clamp(max=15)], 0)
+        dc_len = torch.where(valid, (lut >> 16) + size, 0)
+        lens[0] = dc_len
+        words[0] = _shl(_shl(lut & 0xFFFF, size) | extra, 32 - dc_len)
+
+    in_band = (slot >= ss) & (slot < se)
+    band = torch.where(in_band, qq, 0)
+    nz = band != 0
+    lastnz = torch.where(nz, slot, -1).cummax(dim=0).values
+    prevnz = torch.cat(
+        [torch.full((1, Bp), -1, dtype=torch.int64, device=dev), lastnz[:-1]]
+    ).clamp(min=ss - 1)
+    run = slot - prevnz - 1
+    size = _bit_length(band.abs())
+    extra = (band - (band < 0).long()) & _mask(size)
+    sym = ((run & 15) << 4) | size
+    lut = acl[act[None, :], sym]
+    sym_len = (lut >> 16) + size
+    sym_w = _shl(_shl(lut & 0xFFFF, size) | extra, 32 - sym_len)
+    zrl = acl[act, 0xF0]
+    zrl_len = zrl >> 16
+    zrl_w = _shl(zrl & 0xFFFF, 32 - zrl_len)
+    last = lastnz[63]
+    item = nz & valid
+    zrl_here = (~nz) & in_band & ((run & 15) == 15) & (slot < last) & valid
+    ac_slots = in_band & (slot > 0) if spec.emit_dc else in_band
+    lens = torch.where(ac_slots, torch.where(item, sym_len,
+                                             torch.where(zrl_here, zrl_len, 0)),
+                       lens)
+    words = torch.where(ac_slots, torch.where(item, sym_w,
+                                              torch.where(zrl_here, zrl_w, 0)),
+                        words)
+
+    eob = acl[act, 0]
+    eob_flag = (last < se - 1) & valid
+    eob_len = torch.where(eob_flag, eob >> 16, 0)
+    eob_w = _shl(eob & 0xFFFF, 32 - eob_len.clamp(max=32))
+
+    total64 = lens.sum(0)
+    total = total64 + eob_len
+    ovf = (
+        (lens.view(8, 8, Bp).sum(1) > 32 * cap8).any()
+        | (lens.view(4, 16, Bp).sum(1) > 32 * cap16).any()
+        | (lens.view(2, 32, Bp).sum(1) > 32 * cap32).any()
+        | (total64 > 32 * cap64).any()
+        | (total > 32 * capB).any()
+    )
+
+    # Bit concatenation: slot items in order, then EOB.
+    all_len = torch.cat([lens, eob_len[None]])             # (65, Bp)
+    all_w = torch.cat([words, eob_w[None]])
+    off = torch.cumsum(all_len, 0) - all_len
+    out = _scatter_words(Bp, capB, bidx[None, :].expand(65, Bp), off, all_w,
+                         all_len > 0)
+    return out, total.to(torch.int32), ovf.to(torch.int32).reshape(1)
+
+
+def pack_blocks(q, dcdiff, dc_tab, ac_tab, spec: ScanSpec, Bp: int,
+                budget: int):
+    """K2 on ``q``'s device: the CUDA kernel for CUDA tensors, the plain
+    version (:func:`pack_blocks_ref`, same contract) for CPU tensors."""
+    if not cuda_lib.on_cuda(q, "pack_blocks"):
+        return pack_blocks_ref(q, dcdiff, dc_tab, ac_tab, spec, Bp, budget)
+    _check_spec(spec)
+    dev = q.device
+    B = q.shape[-1]
+    n_tabs = ac_tab.shape[0]
+    cuda_lib.check_tensor("q", q, torch.int16, (64, B), dev)
+    cuda_lib.check_tensor("dcdiff", dcdiff, torch.int32, (B,), dev)
+    cuda_lib.check_tensor("dc_tab", dc_tab, torch.int32, (1, 128), dev)
+    cuda_lib.check_tensor("ac_tab", ac_tab, torch.int32, (n_tabs, 256), dev)
+    if Bp < B:
+        raise ValueError(f"Bp {Bp} < B {B}")
+    if max(spec.dc_tab_pattern + spec.ac_tab_pattern) >= min(n_tabs, 8):
+        raise ValueError("table pattern names a missing table")
+    caps = _p1_caps(budget)
+    words = torch.empty((Bp, caps[-1]), dtype=torch.int32, device=dev)
+    lens = torch.empty(Bp, dtype=torch.int32, device=dev)
+    ovf = torch.zeros(1, dtype=torch.int32, device=dev)
+    lib = cuda_lib.library()
+    cuda_lib.check(
+        lib.tpuenc_pack_blocks(
+            q.data_ptr(), B, Bp, dcdiff.data_ptr(), dc_tab.data_ptr(),
+            ac_tab.data_ptr(),
+            cuda_lib.int_array(spec.dc_tab_pattern + spec.ac_tab_pattern),
+            len(spec.dc_tab_pattern), spec.spectral_start, spec.spectral_end,
+            int(spec.emit_dc), cuda_lib.int_array(caps), words.data_ptr(),
+            lens.data_ptr(), ovf.data_ptr(), cuda_lib.stream_of(q),
+        ),
+        "tpuenc_pack_blocks",
+    )
+    pack_blocks.launches += 1
+    return words, lens, ovf
+
+
+pack_blocks.launches = 0
+
+
+def dc_diffs_from_dc(dc, spec: ScanSpec):
+    """(B,) int32 DC differences from the (B,) DC row: each block minus the
+    previous block of the same component, reset to 0 at every restart
+    segment start (reference encoder.rs:748-757)."""
+    B = dc.shape[0]
+    dev = dc.device
+    dc = dc.to(torch.int32)
+    pat = len(spec.dc_tab_pattern)
+    bidx = torch.arange(B, device=dev)
+    pos = bidx % pat
+    delta = torch.full((B,), int(spec.dc_prev_delta[0]), dtype=torch.int64,
+                       device=dev)
+    for p in range(1, pat):
+        delta = torch.where(pos == p, int(spec.dc_prev_delta[p]), delta)
+    prev = torch.zeros_like(dc)
+    for d in sorted(set(spec.dc_prev_delta)):
+        prev = torch.where(delta == d, torch.roll(dc, d), prev)
+    seg = spec.seg_blocks if spec.seg_blocks > 0 else B
+    prev = torch.where((bidx % seg) >= delta, prev, 0)
+    return dc - prev
+
+
+def scan_pack_blocks(blocks, spec: ScanSpec, dc_packed, ac_packed,
+                     budget: int, *, tile: int = 512):
+    """P1 of one scan: int16 (64, B) coefficient-major blocks -> (words
+    int32 (Bp, capB), lens int32 (Bp,), overflow int32 (1,)), with Bp = B
+    rounded up to ``tile`` and padding blocks of length 0.  Block-level
+    caps take ``max(budget, 16)``: they must hold the busiest single
+    block however small the aggregate budget is."""
+    B = blocks.shape[1]
+    Bp = -(-B // tile) * tile
+    dcdiff = dc_diffs_from_dc(blocks[0], spec)
+    return pack_blocks(blocks.contiguous(), dcdiff, dc_packed, ac_packed, spec,
+                       Bp, max(budget, 16))
+
+
+# ---------------------------------------------------------------------------
+# P2 / P3 (K3 / K4): merge runs of rows.
+# ---------------------------------------------------------------------------
+
+def merge_rows_ref(words, lens, run: int, n_runs: int, caps, cap_out: int):
+    """Plain version of K3/K4.
+
+    ``words``: int32 (N, C) MSB-aligned rows, zero past their length;
+    ``lens``: int32 (N,) bit lengths.  Row ``r*run + i`` is row i of run r;
+    rows at or past N are empty.  Returns ``(out int32 (n_runs, cap_out),
+    out_len int32 (n_runs,), overflow int32 (1,))``: each run's bit
+    concatenation, its length, and whether any aligned window of
+    ``2 << l`` rows of a run holds more than ``32 * caps[l]`` bits."""
+    dev = words.device
+    N, C = words.shape
+    M = n_runs * run
+    k = min(N, M)
+    L = torch.zeros(M, dtype=torch.int64, device=dev)
+    L[:k] = lens[:k]
+    X = torch.zeros((M, C), dtype=torch.int64, device=dev)
+    X[:k] = _u32(words[:k])
+    Lr = L.view(n_runs, run)
+    incl = torch.cumsum(Lr, 1)
+    excl = (incl - Lr).reshape(M, 1)
+    ovf = torch.zeros((), dtype=torch.bool, device=dev)
+    for lvl, cap in enumerate(caps):
+        size = 2 << lvl
+        padded = torch.nn.functional.pad(Lr, (0, -(-run // size) * size - run))
+        ovf = ovf | (padded.view(n_runs, -1, size).sum(-1) > 32 * cap).any()
+    j = torch.arange(C, device=dev)
+    off = excl + 32 * j
+    active = 32 * j < L.view(M, 1)
+    row_idx = (torch.arange(M, device=dev) // run).view(M, 1).expand(M, C)
+    out = _scatter_words(n_runs, cap_out, row_idx, off, X, active)
+    return out, incl[:, -1].to(torch.int32), ovf.to(torch.int32).reshape(1)
+
+
+def _merge_rows(words, lens, run: int, n_runs: int, caps, cap_out: int):
+    dev = words.device
+    N, C = words.shape
+    cuda_lib.check_tensor("words", words, torch.int32, (N, C), dev)
+    cuda_lib.check_tensor("lens", lens, torch.int32, (N,), dev)
+    if run < 1 or run > 6000 or len(caps) > 24:
+        raise ValueError(f"merge_rows: unsupported run {run} / {len(caps)} levels")
+    out = torch.zeros((n_runs, cap_out), dtype=torch.int32, device=dev)
+    out_len = torch.empty(n_runs, dtype=torch.int32, device=dev)
+    ovf = torch.zeros(1, dtype=torch.int32, device=dev)
+    lib = cuda_lib.library()
+    cuda_lib.check(
+        lib.tpuenc_merge_rows(
+            words.data_ptr(), lens.data_ptr(), N, C, run, n_runs,
+            cuda_lib.int_array(caps), len(caps), out.data_ptr(), cap_out,
+            out_len.data_ptr(), ovf.data_ptr(), cuda_lib.stream_of(words),
+        ),
+        "tpuenc_merge_rows",
+    )
+    return out, out_len, ovf
+
+
+def merge_chunks(words, lens, run: int, n_runs: int, caps, cap_out: int):
+    """K3 (P2) on ``words``' device; contract of :func:`merge_rows_ref`."""
+    if not cuda_lib.on_cuda(words, "merge_chunks"):
+        return merge_rows_ref(words, lens, run, n_runs, caps, cap_out)
+    res = _merge_rows(words, lens, run, n_runs, caps, cap_out)
+    merge_chunks.launches += 1
+    return res
+
+
+def fold_rows(words, lens, run: int, n_runs: int, caps, cap_out: int):
+    """K4 (P3) on ``words``' device; contract of :func:`merge_rows_ref`."""
+    if not cuda_lib.on_cuda(words, "fold_rows"):
+        return merge_rows_ref(words, lens, run, n_runs, caps, cap_out)
+    res = _merge_rows(words, lens, run, n_runs, caps, cap_out)
+    fold_rows.launches += 1
+    return res
+
+
+merge_chunks.launches = 0
+fold_rows.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# P4 (K5): rows into one stream.
+# ---------------------------------------------------------------------------
+
+def concat_rows_ref(rows, pos, bits, capW: int):
+    """Plain version of K5: ``rows`` int32 (R, W), ``pos`` int64 (R,) bit
+    offsets (exclusive prefix of ``bits``), ``bits`` int32 (R,).  Returns
+    the int32 (capW,) stream with row r at bit pos[r]."""
+    dev = rows.device
+    R, W = rows.shape
+    j = torch.arange(W, device=dev)
+    nw = ((bits.to(torch.int64) + 31) >> 5).view(R, 1)
+    off = pos.view(R, 1) + 32 * j
+    zero = torch.zeros((R, W), dtype=torch.int64, device=dev)
+    out = _scatter_words(1, capW, zero, off, _u32(rows), j < nw)
+    return out.view(capW)
+
+
+def concat_rows(rows, pos, bits, capW: int):
+    """K5 (P4) on ``rows``' device; contract of :func:`concat_rows_ref`."""
+    if not cuda_lib.on_cuda(rows, "concat_rows"):
+        return concat_rows_ref(rows, pos, bits, capW)
+    dev = rows.device
+    R, W = rows.shape
+    cuda_lib.check_tensor("rows", rows, torch.int32, (R, W), dev)
+    cuda_lib.check_tensor("pos", pos, torch.int64, (R,), dev)
+    cuda_lib.check_tensor("bits", bits, torch.int32, (R,), dev)
+    out = torch.zeros(capW, dtype=torch.int32, device=dev)
+    lib = cuda_lib.library()
+    cuda_lib.check(
+        lib.tpuenc_concat_rows(
+            rows.data_ptr(), pos.data_ptr(), bits.data_ptr(), R, W,
+            out.data_ptr(), capW, cuda_lib.stream_of(rows),
+        ),
+        "tpuenc_concat_rows",
+    )
+    concat_rows.launches += 1
+    return out
+
+
+concat_rows.launches = 0
+
+
+def merge_plan(Bp: int, capB: int, budget: int, n_sub: int = 128,
+               chunk: int = 256):
+    """Shapes of P2 and P3 for ``Bp`` block strings of ``capB`` words:
+    ``(chunk, n2, caps, caps_f)``.  P2 merges runs of ``chunk`` blocks
+    into ``n_sub * n2`` rows under ``caps``; P3 folds each substream's
+    ``n2`` rows into one under ``caps_f``, which is None where P3 is
+    skipped (a single row per substream, or no :func:`fold_plan`)."""
+    n1 = -(-Bp // n_sub)
+    # Small scans: shrink the chunk so the stream is not padded to
+    # n_sub * chunk block slots; chunk stays a power of two >= 2.
+    chunk = max(2, min(chunk, 1 << max(1, (n1 - 1).bit_length())))
+    n2 = -(-n1 // chunk)
+    caps = chunk_caps(capB, chunk, budget)
+    caps_f = None
+    if n2 > 1:
+        n2p = 1 << (n2 - 1).bit_length()
+        plan = fold_plan(n2p, -(-caps[-1] // 128) * 128, n_sub, budget * chunk)
+        if plan is not None:
+            caps_f = plan[1]
+    return chunk, n2, caps, caps_f
+
+
+def merge_pack_stream(words, lens, budget: int, *, n_sub: int = 128,
+                      chunk: int = 256):
+    """P2-P4: per-block bit strings (Bp, capB) + (Bp,) lens -> one raw
+    bit-concatenated stream.  Returns ``(stream int32 (capW,), total_bits
+    int64 (), overflow int32 (1,))``.
+
+    Substream s holds blocks [s*n2*chunk, (s+1)*n2*chunk); P2 merges each
+    run of ``chunk`` consecutive blocks into one row, so rows come out in
+    stream order.  P3 folds each substream's rows into one where
+    :func:`merge_plan` says so, and P4 places the rows at the prefix sums
+    of their lengths."""
+    Bp, capB = words.shape
+    chunk, n2, caps, caps_f = merge_plan(Bp, capB, budget, n_sub, chunk)
+    cap_out = caps[-1]
+    rows, row_bits, ovf = merge_chunks(words, lens, chunk, n_sub * n2, caps,
+                                       cap_out)
+    if caps_f is not None:
+        cap_out = caps_f[-1]
+        rows, row_bits, ovf3 = fold_rows(rows, row_bits, n2, n_sub, caps_f,
+                                         cap_out)
+        ovf = ovf | ovf3
+
+    R = rows.shape[0]
+    incl = torch.cumsum(row_bits.to(torch.int64), 0)
+    pos = incl - row_bits
+    capW = -(-(R * cap_out + cap_out + 256) // 128) * 128
+    stream = concat_rows(rows, pos, row_bits, capW)
+    return stream, incl[-1], ovf
