@@ -1,21 +1,32 @@
-"""Drive tpuenc_torch's main path once on one NVIDIA GPU and check it.
+"""Drive tpuenc_torch's main paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
-Phases, each printing its own lines:
+Phases, each printing its own lines and its wall seconds:
 
 1. environment: the card (nvidia-smi name and power limit), torch, nvcc;
    no CUDA device is an error;
-2. build the CUDA kernels from ``tpuenc_torch/csrc`` and time the build;
-3. each kernel of the path (K1-K5) against its plain PyTorch version on
-   the same CUDA tensors, at the flagship's shapes (2000x1800 RGB 4:4:4,
-   168,750 blocks), K2-K5 at budget rungs 5 and 16: bit-exact (tolerance
-   0), with both times (CUDA events, median of 10 warm runs);
-4. the 17 interleaved frozen fixtures encoded on the card, byte for byte;
-5. the flagship encode, ``Encoder(90, device="cuda").encode(rgb, 2000,
-   1800, ColorType.RGB)``: the same bytes as the CPU path, every kernel's
-   launch count above 0, the budget rung, warm end-to-end MP/s (median of
-   7) and per-stage device times.
+2. build the CUDA kernels from ``tpuenc_torch/csrc`` (one nvcc per source,
+   all started together) and time the build;
+3. each kernel (K1-K7, K9) against its plain PyTorch version on the same
+   CUDA tensors, at the flagship's shapes (2000x1800 RGB, 56,250 blocks per
+   component): K1 on the luma plane; K2 on the interleaved stream at block
+   budgets 16 and 48; K3-K5 at budget rungs 5 and 16; K6 on the
+   progressive luma stream with the 4-scan plan's three bands at block
+   budgets 16 and 48; K7 on the same stream and bands; K9 on its band
+   (1, 64).  Bit-exact (tolerance 0), with both times (CUDA events, median
+   of 10 warm runs);
+4. the 26 frozen fixtures encoded on the card, byte for byte;
+5. the interleaved flagship, ``Encoder(90, device="cuda").encode(rgb,
+   2000, 1800, ColorType.RGB)``: the same bytes as the CPU path, K1-K5
+   launched, the budget rung, warm end-to-end MP/s (median of 7) and
+   per-stage times;
+6. the same image and encoder switched to progressive scans with two-pass
+   optimized tables (``set_progressive(True)``,
+   ``set_optimized_huffman_tables(True)``): the same bytes as the CPU path
+   (run in a child process, timed, its peak memory reported), K1, K3-K7
+   launched and K2 not, the budget rung and the hint, warm end-to-end MP/s
+   (median of 7) and per-stage times.
 
 It prints a JSON line of the kernels, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failure raises, so the
@@ -108,8 +119,10 @@ def phase_kernels(dev):
     from tpuenc_torch import params_from_numpy
     from tpuenc_torch.core.tables import default_tables, quantization_table
     from tpuenc_torch.core.types import ColorType, EncoderConfig
+    from tpuenc_torch.entropy import pallas_hist as ph
     from tpuenc_torch.entropy import pallas_pack as pk
     from tpuenc_torch.entropy.device_encode import build_scan_plan, tables_to_arrays
+    from tpuenc_torch.entropy.huffopt import progressive_bands
     from tpuenc_torch.kernels import pallas_fdct, pipeline
     from tpuenc_torch.kernels.color_convert import to_planes
 
@@ -152,15 +165,19 @@ def phase_kernels(dev):
     Bp = -(-B // 512) * 512
     print(f"  flagship stream: {B} blocks, padded to {Bp}")
     dcdiff = pk.dc_diffs_from_dc(stream[0], spec)
+    strings = {}
+    for block_budget in (16, 48):
+        strings[block_budget] = check(
+            f"K2 pack_blocks budget {block_budget}",
+            lambda: pk.pack_blocks(stream, dcdiff, params.dc, params.ac, spec,
+                                   Bp, block_budget),
+            lambda: pk.pack_blocks_ref(stream, dcdiff, params.dc, params.ac,
+                                       spec, Bp, block_budget),
+        )
+    # Rungs 5 and 16 both pack their blocks at block budget max(rung, 16).
+    words, lens, _ = strings[16]
     n_sub = 128
     for rung in (5, 16):
-        words, lens, _ = check(
-            f"K2 pack_blocks rung {rung}",
-            lambda: pk.pack_blocks(stream, dcdiff, params.dc, params.ac, spec,
-                                   Bp, max(rung, 16)),
-            lambda: pk.pack_blocks_ref(stream, dcdiff, params.dc, params.ac,
-                                       spec, Bp, max(rung, 16)),
-        )
         capB = words.shape[1]
         chunk, n2, caps, caps_f = pk.merge_plan(Bp, capB, rung, n_sub)
         rows, row_bits, _ = check(
@@ -182,6 +199,29 @@ def phase_kernels(dev):
         check(f"K5 concat_rows rung {rung}",
               lambda: pk.concat_rows(frows, pos, fbits, capW),
               lambda: pk.concat_rows_ref(frows, pos, fbits, capW))
+
+    # K6, K7, K9 on the progressive flagship's luma stream.
+    pconfig = progressive_encoder(dev)._config()
+    luma = pipeline.fn_cm(px, FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB, pconfig,
+                          params.reciprocals, params.corrections)[0]
+    B = luma.shape[1]
+    Bp = -(-B // 512) * 512
+    bands = tuple(progressive_bands(pconfig.progressive_scans))
+    print(f"  progressive luma stream: {B} blocks, padded to {Bp}, "
+          f"bands {bands}")
+    for block_budget in (16, 48):
+        got = check(
+            f"K6 pack_acbands budget {block_budget}",
+            lambda: pk.pack_acbands(luma, bands, params.ac, 0, Bp, block_budget),
+            lambda: pk.pack_acbands_ref(luma, bands, params.ac, 0, Bp,
+                                        block_budget),
+        )
+        print(f"  K6 budget {block_budget}: cap_f {got[0].shape[2]}, "
+              f"overflow {int(got[2].item())}")
+    check("K7 hist_count", lambda: ph.hist_count(luma, bands),
+          lambda: ph.hist_count_ref(luma, bands))
+    check("K9 hist_sym", lambda: ph.hist_sym(luma, 1, 64, Bp),
+          lambda: ph.hist_sym_ref(luma, 1, 64, Bp))
     return results
 
 
@@ -195,7 +235,9 @@ def phase_fixtures(dev):
         got = build().encode(img(ch, seed, w, h), w, h, ct)
         if got != want:
             raise AssertionError(f"fixture {name}: bytes differ on {dev}")
-    print(f"fixtures: {len(cases)} interleaved fixtures byte-identical on {dev}")
+    if len(cases) != 26:
+        raise AssertionError(f"{len(cases)} fixtures, want 26")
+    print(f"fixtures: all {len(cases)} fixtures byte-identical on {dev}")
 
 
 def stage_times(dev, rgb, budget):
@@ -229,9 +271,10 @@ def stage_times(dev, rgb, budget):
     words, lens, _ = pk.scan_pack_blocks(stream, spec, params.dc, params.ac, budget)
     st["P2-P4: K3 + K4 + K5"] = cuda_ms(
         lambda: pk.merge_pack_stream(words, lens, budget))
+    plan = [(0, spec, None)]
     st["pack + meta (P1-P4, seg bits)"] = cuda_ms(
-        lambda: de._pack_scans_v2(stream, spec, params, budget))
-    buf, meta = de._pack_scans_v2(stream, spec, params, budget)
+        lambda: de._pack_scans_v2((stream,), plan, params, budget))
+    buf, meta = de._pack_scans_v2((stream,), plan, params, budget)
     meta_np = meta.cpu().numpy()
     times = []
     for _ in range(5):
@@ -243,38 +286,46 @@ def stage_times(dev, rgb, budget):
         print(f"  {k:50s} {v:9.4f} ms")
 
 
-def phase_flagship(dev):
-    from tpuenc_torch import ColorType, Encoder
+def counted_kernels():
+    """Every kernel wrapper, with its launch counter."""
+    from tpuenc_torch.entropy import pallas_hist as ph
     from tpuenc_torch.entropy import pallas_pack as pk
     from tpuenc_torch.kernels import pallas_fdct
 
-    counted = [pallas_fdct.fdct_quantize, pk.pack_blocks, pk.merge_chunks,
-               pk.fold_rows, pk.concat_rows]
-    rgb = make_rgb(FLAGSHIP_W, FLAGSHIP_H)
-    enc = Encoder(90, device=dev)
+    return [pallas_fdct.fdct_quantize, pk.pack_blocks, pk.merge_chunks,
+            pk.fold_rows, pk.concat_rows, pk.pack_acbands, ph.hist_count,
+            ph.hist_sym]
+
+
+def drive(enc, rgb, required, absent=()):
+    """One encode of ``rgb`` with every launch count set to 0 just before
+    it; returns (bytes, {wrapper name: launches}) and checks that each
+    ``required`` wrapper launched and each ``absent`` one did not."""
+    from tpuenc_torch import ColorType
+
+    counted = counted_kernels()
     for fn in counted:
         fn.launches = 0
     out = enc.encode(rgb, FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB)
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counted}
-    print(f"flagship: {len(out)} bytes, path {enc.last_encode_path}, "
-          f"budget rung {enc.last_budget}, launches {launches}")
+    print(f"  {len(out)} bytes, path {enc.last_encode_path}, budget rung "
+          f"{enc.last_budget}, launches {launches}")
     if enc.last_encode_path != "device-v2":
-        raise AssertionError(f"flagship ran on {enc.last_encode_path}")
-    idle = [k for k, v in launches.items() if v == 0]
+        raise AssertionError(f"encode ran on {enc.last_encode_path}")
+    idle = [k for k in required if launches[k] == 0]
     if idle:
-        raise AssertionError(f"kernels never launched on the main path: {idle}")
+        raise AssertionError(f"kernels never launched on the path: {idle}")
+    extra = [k for k in absent if launches[k] != 0]
+    if extra:
+        raise AssertionError(f"kernels launched off the path: {extra}")
     if out[:2] != b"\xff\xd8" or out[-2:] != b"\xff\xd9":
-        raise AssertionError("flagship output is not a JPEG stream")
+        raise AssertionError("output is not a JPEG stream")
+    return out, launches
 
-    t0 = time.perf_counter()
-    want = Encoder(90, device="cpu").encode(rgb, FLAGSHIP_W, FLAGSHIP_H,
-                                            ColorType.RGB)
-    print(f"flagship on the CPU path: {len(want)} bytes in "
-          f"{time.perf_counter() - t0:.2f} s")
-    if out != want:
-        raise AssertionError("flagship bytes differ between cuda and cpu")
-    print("flagship: cuda bytes == cpu bytes")
+
+def e2e(enc, rgb):
+    from tpuenc_torch import ColorType
 
     times = []
     for _ in range(7):
@@ -283,10 +334,146 @@ def phase_flagship(dev):
         times.append(time.perf_counter() - t0)
     med = statistics.median(times)
     mp = FLAGSHIP_W * FLAGSHIP_H / 1e6
-    print(f"flagship e2e (host pixels -> bytes, warm, median of 7): "
+    print(f"  e2e (host pixels -> bytes, warm, median of 7): "
           f"{med * 1e3:.3f} ms = {mp / med:.1f} MP/s "
           f"(runs ms: {' '.join(f'{t * 1e3:.3f}' for t in times)})")
+
+
+def phase_flagship(dev):
+    from tpuenc_torch import ColorType, Encoder
+
+    rgb = make_rgb(FLAGSHIP_W, FLAGSHIP_H)
+    enc = Encoder(90, device=dev)
+    out, launches = drive(enc, rgb, ["fdct_quantize", "pack_blocks",
+                                     "merge_chunks", "fold_rows",
+                                     "concat_rows"])
+    t0 = time.perf_counter()
+    want = Encoder(90, device="cpu").encode(rgb, FLAGSHIP_W, FLAGSHIP_H,
+                                            ColorType.RGB)
+    print(f"  the CPU path: {len(want)} bytes in "
+          f"{time.perf_counter() - t0:.2f} s")
+    if out != want:
+        raise AssertionError("flagship bytes differ between cuda and cpu")
+    print("  cuda bytes == cpu bytes")
+    e2e(enc, rgb)
     stage_times(dev, rgb, enc.last_budget)
+    return launches
+
+
+def progressive_encoder(device):
+    """The flagship's encoder switched to progressive scans (4: the
+    default of set_progressive) with two-pass optimized tables."""
+    from tpuenc_torch import Encoder
+
+    enc = Encoder(90, device=device)
+    enc.set_progressive(True)
+    enc.set_optimized_huffman_tables(True)
+    return enc
+
+
+# The CPU half of phase 6, in a child process so that its time and peak
+# memory are its own: JPEG bytes to stdout, "seconds peak_rss_kib" to
+# stderr.
+CPU_PROGRESSIVE = """
+import resource, sys, time
+import chip_smoke as c
+from tpuenc_torch import ColorType
+rgb = c.make_rgb(c.FLAGSHIP_W, c.FLAGSHIP_H)
+t0 = time.perf_counter()
+out = c.progressive_encoder("cpu").encode(rgb, c.FLAGSHIP_W, c.FLAGSHIP_H,
+                                          ColorType.RGB)
+sys.stderr.write(f"{time.perf_counter() - t0} "
+                 f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss}")
+sys.stdout.buffer.write(out)
+"""
+
+
+def progressive_stage_times(dev, rgb, budget):
+    """Device ms of each stage of one progressive optimized-table encode
+    (CUDA events, median of 10) and the host stages (host clock, median of
+    5).  Returns the budget hint."""
+    from tpuenc_torch.api import optimize_tables
+    from tpuenc_torch.core.tables import default_tables, quantization_table
+    from tpuenc_torch.core.types import ColorType
+    from tpuenc_torch.entropy import device_encode as de
+    from tpuenc_torch.entropy import pallas_pack as pk
+    from tpuenc_torch.entropy.device import scan_histograms
+    from tpuenc_torch.kernels import pipeline
+
+    config = progressive_encoder(dev)._config()
+    layout = pipeline.scan_layout(FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB, config)
+    comps = layout["components"]
+    plan = de.build_scan_plan(layout, comps, config)
+    seg_structure = de.seg_structure(layout, plan)
+    q_tables = [quantization_table("default", 90, True),
+                quantization_table("default", 90, False)]
+    recip, corr = de.quant_params(q_tables, dev)
+    px = torch.from_numpy(rgb).to(dev)
+
+    def coefficients():
+        return pipeline.fn_cm(px, FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB,
+                              config, recip, corr)
+
+    def histograms():
+        return scan_histograms(streams, comps, config.progressive_scans).cpu()
+
+    def host_times(fn):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    st = {}
+    st["coefficients (color, pad, blockify, K1 x3, crop)"] = cuda_ms(coefficients)
+    streams = coefficients()
+    st["histograms (DC + K7 x3) + D2H of 2x2x257 counts"] = cuda_ms(histograms)
+    hists = histograms().numpy()
+    huffman = [list(p) for p in default_tables()]
+    hint = optimize_tables(hists, huffman, FLAGSHIP_W, FLAGSHIP_H,
+                           ColorType.RGB, config)
+    st["host: K.2 build x4 + exact bits (host clock)"] = host_times(
+        lambda: optimize_tables(hists, [list(p) for p in default_tables()],
+                                FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB, config))
+    params = de.EncodeParams(recip, corr, *de.huffman_params(huffman, dev))
+    st["P1: DC path x3 + K6 x3 + concat"] = cuda_ms(
+        lambda: de.pack_scans_p1(streams, plan, params, budget))
+    W, L, _, _, _ = de.pack_scans_p1(streams, plan, params, budget)
+    chunk, n2, _, caps_f = pk.merge_plan(W.shape[0], W.shape[1], budget)
+    print(f"  {len(plan)} scans, {W.shape[0]} pack rows of {W.shape[1]} words, "
+          f"P2 chunk {chunk}, n2 {n2}, P3 fold {caps_f is not None}")
+    st["P2-P4: K3 + K4 + K5"] = cuda_ms(lambda: pk.merge_pack_stream(W, L, budget))
+    buf, meta = de._pack_scans_v2(streams, plan, params, budget)
+    meta_np = meta.cpu().numpy()
+    st["host: d2h stream + realign/stuff x12 (host clock)"] = host_times(
+        lambda: de._finish_scans_v2(buf, meta_np, len(plan), seg_structure))
+    for k, v in st.items():
+        print(f"  {k:50s} {v:9.4f} ms")
+    return hint
+
+
+def phase_progressive(dev):
+    rgb = make_rgb(FLAGSHIP_W, FLAGSHIP_H)
+    enc = progressive_encoder(dev)
+    out, launches = drive(
+        enc, rgb,
+        ["fdct_quantize", "merge_chunks", "fold_rows", "concat_rows",
+         "pack_acbands", "hist_count"],
+        absent=["pack_blocks", "hist_sym"])
+    if b"\xff\xc2" not in out:
+        raise AssertionError("no progressive frame header (SOF2)")
+    res = subprocess.run([sys.executable, "-c", CPU_PROGRESSIVE], cwd=HERE,
+                         capture_output=True, check=True)
+    seconds, rss_kib = res.stderr.decode().split()[-2:]
+    print(f"  the CPU path (child process): {len(res.stdout)} bytes in "
+          f"{float(seconds):.2f} s, peak RSS {int(rss_kib) / 2**20:.2f} GiB")
+    if out != res.stdout:
+        raise AssertionError("progressive bytes differ between cuda and cpu")
+    print("  cuda bytes == cpu bytes")
+    e2e(enc, rgb)
+    hint = progressive_stage_times(dev, rgb, enc.last_budget)
+    print(f"  budget hint {hint} words per pack row, rung {enc.last_budget}")
     return launches
 
 
@@ -294,7 +481,7 @@ KERNELS = [
     # (name, counter key, results key, source, replaces)
     ("K1 fdct_quantize", "fdct_quantize", "K1 fdct_quantize",
      "tpuenc_torch/csrc/fdct_quantize.cu", "tpuenc/kernels/pallas_fdct.py:105"),
-    ("K2 pack_blocks", "pack_blocks", "K2 pack_blocks rung 5",
+    ("K2 pack_blocks", "pack_blocks", "K2 pack_blocks budget 16",
      "tpuenc_torch/csrc/pack_blocks.cu", "tpuenc/entropy/pallas_pack.py:345"),
     ("K3 merge_chunks", "merge_chunks", "K3 merge_chunks rung 5",
      "tpuenc_torch/csrc/merge_rows.cu", "tpuenc/entropy/pallas_pack.py:1116"),
@@ -302,31 +489,50 @@ KERNELS = [
      "tpuenc_torch/csrc/merge_rows.cu", "tpuenc/entropy/pallas_pack.py:1227"),
     ("K5 concat_rows", "concat_rows", "K5 concat_rows rung 5",
      "tpuenc_torch/csrc/concat_rows.cu", "tpuenc/entropy/pallas_pack.py:1342"),
+    ("K6 pack_acbands", "pack_acbands", "K6 pack_acbands budget 16",
+     "tpuenc_torch/csrc/pack_acbands.cu", "tpuenc/entropy/pallas_pack.py:629"),
+    ("K7 hist_count", "hist_count", "K7 hist_count",
+     "tpuenc_torch/csrc/hist_count.cu", "tpuenc/entropy/pallas_hist.py:134"),
+    ("K9 hist_sym", "hist_sym", "K9 hist_sym",
+     "tpuenc_torch/csrc/hist_sym.cu", "tpuenc/entropy/pallas_hist.py:44"),
 ]
 
 
 def main():
-    print("== 1. environment")
-    phase_env()
+    phases = [("1. environment", phase_env), ("2. build", phase_build),
+              ("3. kernels vs plain versions (flagship shapes, tolerance 0)",
+               phase_kernels),
+              ("4. fixtures", phase_fixtures),
+              ("5. flagship, interleaved", phase_flagship),
+              ("6. flagship, progressive with optimized tables",
+               phase_progressive)]
     dev = torch.device("cuda:0")
-    print("== 2. build")
-    phase_build()
-    print("== 3. kernels vs plain versions (flagship shapes, tolerance 0)")
-    results = phase_kernels(dev)
-    print("== 4. fixtures")
-    phase_fixtures(dev)
-    print("== 5. flagship")
-    launches = phase_flagship(dev)
+    out = {}
+    for title, fn in phases:
+        print(f"== {title}")
+        t0 = time.perf_counter()
+        out[title] = fn(dev) if fn not in (phase_env, phase_build) else fn()
+        if fn is phase_kernels:
+            tests_only = {k.__name__: k.launches for k in counted_kernels()}
+        print(f"   ({time.perf_counter() - t0:.2f} s)")
+    results = out[phases[2][0]]
+    paths = {"interleaved": out[phases[4][0]],
+             "progressive_optimized": out[phases[5][0]]}
 
     kernels = []
     for name, counter, key, source, replaces in KERNELS:
-        err, ms, plain_ms = results[key]
+        _, ms, plain_ms = results[key]
         errs = [v[0] for k, v in results.items() if k.startswith(name)]
-        kernels.append({
+        by_path = {p: n[counter] for p, n in paths.items() if n[counter]}
+        entry = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[counter],
+            "replaces": replaces, "launches": sum(by_path.values()),
             "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-        })
+            "path": "+".join(by_path), "launches_by_path": by_path,
+        }
+        if not by_path:  # K9: no encode path runs it (tpuenc's tests only)
+            entry.update(launches=tests_only[counter], path="tests only")
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

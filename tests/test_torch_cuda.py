@@ -152,6 +152,86 @@ def test_k5_matches_plain(dev):
     assert torch.equal(got, tpack.concat_rows_ref(r, pos, b, capW))
 
 
+ACBANDS = [
+    ((1, 22), (22, 43), (43, 64)),            # the flagship's 4-scan plan
+    ((1, 6), (6, 11), (11, 16), (16, 21)),    # four bands of a 13-scan plan
+    ((1, 64),),                               # one band over every AC slot
+]
+
+
+@pytest.mark.parametrize("bi", range(len(ACBANDS)))
+@pytest.mark.parametrize("budget", [16, 48, 224])
+def test_k6_matches_plain(dev, bi, budget):
+    """Words, lengths and the flag; the dense blocks overflow rung 16."""
+    bands = ACBANDS[bi]
+    p = _params(dev)
+    q = torch.from_numpy(_blocks(1000, bi)).to(dev)
+    n = tpack.pack_acbands.launches
+    got = tpack.pack_acbands(q, bands, p.ac, 1, 1024, budget)
+    torch.cuda.synchronize()
+    want = tpack.pack_acbands_ref(q, bands, p.ac, 1, 1024, budget)
+    assert tpack.pack_acbands.launches == n + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if bi == 0:
+        assert bool(got[2].item()) == (budget == 16)
+
+
+def test_k6_empty_band_and_dc_path(dev):
+    """A K6 batch with the empty band [1, 1) of a 34-scan plan, and the
+    DC-only pack, on the card and the CPU."""
+    from tpuenc_torch.entropy.huffopt import progressive_bands
+
+    p = _params(dev)
+    q = _blocks(700, 7)
+    specs = [ScanSpec(ss, se, False, True, (0,), (0,), (1,), 0)
+             for ss, se in progressive_bands(34)[:4]]
+    outs = {}
+    for d in (dev, "cpu"):
+        pd = _params(d)
+        outs[str(d)] = tpack.scan_pack_blocks_acbands(
+            torch.from_numpy(q).to(d), specs, pd.ac, 16)
+    (gw, gl), (cw, cl) = outs[str(dev)][0][0], outs["cpu"][0][0]
+    assert not gl.any() and not gw.any()
+    for (gw, gl), (cw, cl) in zip(outs[str(dev)][0], outs["cpu"][0]):
+        assert torch.equal(gw.cpu(), cw) and torch.equal(gl.cpu(), cl)
+    dc_spec = ScanSpec(1, 1, True, False, (0,), (0,), (1,), 5)
+    got = tpack.dc_only_pack_blocks(torch.from_numpy(q).to(dev), dc_spec, p.dc)
+    want = tpack.dc_only_pack_blocks(torch.from_numpy(q), dc_spec,
+                                     _params("cpu").dc)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("n_bands", [1, 3, 8])
+def test_k7_matches_plain(dev, n_bands):
+    from tpuenc_torch.entropy import pallas_hist as th
+    from tpuenc_torch.entropy.huffopt import progressive_bands
+
+    bands = progressive_bands(n_bands + 1)
+    q = torch.from_numpy(_blocks(3001, n_bands)).to(dev)
+    n = th.hist_count.launches
+    got = th.hist_count(q, bands)
+    torch.cuda.synchronize()
+    assert th.hist_count.launches == n + 1
+    assert torch.equal(got, th.hist_count_ref(q, bands))
+
+
+@pytest.mark.parametrize("band", [(1, 64), (6, 40), (63, 64)])
+def test_k9_matches_plain(dev, band):
+    from tpuenc_torch.entropy import pallas_hist as th
+
+    q = torch.from_numpy(_blocks(1300, band[0])).to(dev)
+    n = th.hist_sym.launches
+    got = th.hist_sym(q, *band, 1536)
+    torch.cuda.synchronize()
+    assert th.hist_sym.launches == n + 1
+    for g, w in zip(got, th.hist_sym_ref(q, *band, 1536)):
+        assert torch.equal(g, w)
+    hist = th.ac_histogram_sym(q, *band)
+    assert torch.equal(hist, th.ac_histograms_multiband(q, [band])[0])
+
+
 def test_wrappers_reject_bad_input(dev):
     p = _params(dev)
     with pytest.raises(ValueError):
@@ -174,14 +254,18 @@ def test_fixtures_on_cuda(dev, name):
     assert build().encode(img(ch, seed, w, h), w, h, ct) == want
 
 
-@pytest.mark.parametrize("w,h,ct,ch,quality,sf,restart", [
-    (2048, 1152, "rgb", 3, 90, "F_2_2", 64),  # 4:2:0 restart64, P3 fold
-    (777, 555, "cmyk", 4, 85, "F_2_1", 0),     # one chunk row: no P3
-    (2048, 2048, "luma", 1, 100, "F_1_1", 3),  # dense q100, P3 fold
+@pytest.mark.parametrize("w,h,ct,ch,quality,sf,restart,scans,opt", [
+    (2048, 1152, "rgb", 3, 90, "F_2_2", 64, None, False),  # 4:2:0 restart64, P3 fold
+    (777, 555, "cmyk", 4, 85, "F_2_1", 0, None, False),     # one chunk row: no P3
+    (2048, 2048, "luma", 1, 100, "F_1_1", 3, None, False),  # dense q100, P3 fold
+    (640, 480, "rgb", 3, 90, "F_1_1", 0, 4, True),          # progressive, K.2 tables
+    (320, 200, "ycck", 4, 80, "F_2_2", 5, 64, False),       # 64 scans, empty bands
+    (500, 300, "rgb", 3, 85, "F_4_1", 2, None, True),       # sequential, K.2 tables
 ])
-def test_cuda_matches_cpu(dev, w, h, ct, ch, quality, sf, restart):
+def test_cuda_matches_cpu(dev, w, h, ct, ch, quality, sf, restart, scans, opt):
     """Whole files on the card equal the CPU path's, on both P2-P4
-    branches: with the P3 fold (more than 32,768 blocks) and without."""
+    branches (with the P3 fold, past 32,768 blocks, and without), and in
+    the sequential, progressive and optimized-table modes."""
     from tpuenc_torch import ColorType, Encoder, SamplingFactor
 
     rng = np.random.default_rng(w + h)
@@ -193,5 +277,8 @@ def test_cuda_matches_cpu(dev, w, h, ct, ch, quality, sf, restart):
         e = Encoder(quality, device=d)
         e.set_sampling_factor(SamplingFactor[sf])
         e.set_restart_interval(restart)
+        if scans:
+            e.set_progressive_scans(scans)
+        e.set_optimized_huffman_tables(opt)
         out[str(d)] = e.encode(px, w, h, ColorType(ct))
     assert out[str(dev)] == out["cpu"]

@@ -1,12 +1,14 @@
 """tpuenc_torch — the PyTorch + CUDA port of ``tpuenc`` for NVIDIA Hopper.
 
 A second package beside ``tpuenc`` (the JAX reference, byte for byte):
-the same ``Encoder`` API on an explicit PyTorch device.  On a CUDA device
-the coefficient stage (fDCT + zigzag + quantize, K1) and the entropy
-packer (P1-P4, K2-K5) run as hand-written CUDA kernels (``csrc/``, built
+the same ``Encoder`` API on an explicit PyTorch device, for interleaved,
+sequential and progressive scans with default or two-pass optimized
+Huffman tables.  On a CUDA device the coefficient stage (fDCT + zigzag +
+quantize, K1), the two-pass symbol counts (K7) and the entropy packer
+(P1-P4: K2, K6, K3-K5) run as hand-written CUDA kernels (``csrc/``, built
 with nvcc at first use); on the CPU the same path runs their plain
-PyTorch versions.  The host finishes each scan with the native realigner
-(``native/entropy.cpp``).
+PyTorch versions.  The host builds the optimized tables and finishes each
+scan with the native library (``native/entropy.cpp``).
 
 This package imports ``torch`` and never ``jax`` or ``tpuenc``.
 """

@@ -8,10 +8,12 @@ On a CUDA device the coefficient stage and the entropy packer run as the
 port's CUDA kernels; on the CPU the same path runs their plain PyTorch
 versions.  Either way the bytes are the same.
 
-This slice covers the interleaved, default-table mode: every color type,
-every sampling factor that stays interleaved, restart intervals and
-metadata.  The other modes raise ``NotImplementedError`` naming their
-ROADMAP item.
+It encodes every mode of the whole-image path: interleaved, sequential
+and progressive (2-64 scans), with default or two-pass optimized Huffman
+tables, every color type and sampling factor, restart intervals and
+metadata.  ``encode_batch`` and ``encode_stream``, and images past the
+whole-image limits, raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -34,8 +36,14 @@ from .core.types import (
     init_components,
 )
 from .entropy import device_encode as de
+from .entropy.device import scan_histograms
+from .entropy.huffopt import (
+    budget_hint_from_bits,
+    exact_stream_bits,
+    tables_from_histograms,
+)
 from .jfif import markers, segments
-from .kernels.pipeline import scan_layout
+from .kernels.pipeline import fn_cm, scan_layout
 
 __all__ = ["Encoder", "ImageBuffer"]
 
@@ -43,6 +51,16 @@ __all__ = ["Encoder", "ImageBuffer"]
 # Larger images need the bounded-memory chunked paths (ROADMAP M9).
 DEVICE_BLOCK_LIMIT = 3_000_000
 DEVICE_PACK_ROWS_LIMIT = 12_000_000
+
+
+def _plan_pack_rows(width, height, color_type, config) -> int:
+    """Pack rows of the encode's shared P2-P4 merge: one per block per
+    scan (tpuenc/api.py:71-83)."""
+    layout = scan_layout(width, height, color_type, config)
+    if layout["interleaved"]:
+        return len(layout["mcu_block_comps"]) * layout["mcu_count"]
+    scans_per_comp = config.progressive_scans or 1  # 1 DC + (n-1) AC bands
+    return sum(layout["comp_block_counts"]) * scans_per_comp
 
 
 def _check_dims(width: int, height: int) -> None:
@@ -128,8 +146,10 @@ class Encoder:
         self._app_segments: List[Tuple[int, bytes]] = []
         self._path = _path
         self._writer = _writer
-        # Parameter tensors on self.device, keyed by (quantization, quality).
-        self._params: dict = {}
+        # Quantizer tensors on self.device, keyed by (quantization,
+        # quality), and the default Huffman tables' tensors.
+        self._quant: dict = {}
+        self._default_huffman = None
         # Which path produced the last encode() output ("device-v2", the
         # counterpart of tpuenc's v2 device packer), and the budget rung
         # (words per block) its packer used.
@@ -323,34 +343,21 @@ class Encoder:
         return out
 
     def _check_supported(self, config, width, height, color_type) -> None:
-        if config.optimize_huffman_table:
-            raise NotImplementedError(
-                "optimized Huffman tables are not ported yet: ROADMAP M7"
-            )
-        if config.mode() != "interleaved":
-            raise NotImplementedError(
-                f"{config.mode()} scans are not ported yet: ROADMAP M6"
-            )
-        layout = scan_layout(width, height, color_type, config)
-        rows = len(layout["mcu_block_comps"]) * layout["mcu_count"]
         if (
             (width // 8 + 1) * (height // 8 + 1) > DEVICE_BLOCK_LIMIT
-            or rows > DEVICE_PACK_ROWS_LIMIT
+            or _plan_pack_rows(width, height, color_type, config)
+            > DEVICE_PACK_ROWS_LIMIT
         ):
             raise NotImplementedError(
                 "images over the whole-image device limits need the chunked "
                 "paths, not ported yet: ROADMAP M9"
             )
 
-    def _encode_params(self, config, q_tables, huffman) -> de.EncodeParams:
+    def _quant_params(self, config, q_tables):
         key = (config.quantization, config.quality)
-        params = self._params.get(key)
-        if params is None:
-            params = de.params_from_numpy(
-                q_tables, *de.tables_to_arrays(huffman), self.device
-            )
-            self._params[key] = params
-        return params
+        if key not in self._quant:
+            self._quant[key] = de.quant_params(q_tables, self.device)
+        return self._quant[key]
 
     def _encode_pixels(
         self, pixels: np.ndarray, width: int, height: int, color_type: ColorType
@@ -363,15 +370,36 @@ class Encoder:
             quantization_table(config.quantization[0], config.quality, luma=True),
             quantization_table(config.quantization[1], config.quality, luma=False),
         ]
+        recip, corr = self._quant_params(config, q_tables)
         huffman = [list(pair) for pair in default_tables()]
-        params = self._encode_params(config, q_tables, huffman)
 
         if not pixels.flags.writeable:
             pixels = pixels.copy()
         px = torch.from_numpy(np.ascontiguousarray(pixels)).to(self.device)
-        scans, budget = de.device_encode_scans(
-            px, width, height, color_type, config, params
-        )
+        if config.optimize_huffman_table:
+            # Two passes (tpuenc/api.py:776-825): coefficients and
+            # histograms on the device, one small copy of the counts, the
+            # K.2 build per table on the host, and the same device streams
+            # packed with the new tables, the ladder starting at the rung
+            # that the exact stream size covers.
+            streams = fn_cm(px, width, height, color_type, config, recip, corr)
+            hists = scan_histograms(streams, components,
+                                    config.progressive_scans).cpu().numpy()
+            hint = optimize_tables(hists, huffman, width, height, color_type,
+                                   config)
+            dc, ac = de.huffman_params(huffman, self.device)
+            params = de.EncodeParams(recip, corr, dc, ac)
+            scans, budget = de.device_encode_scans(
+                px, width, height, color_type, config, params,
+                comp_streams=streams, budget_hint=hint,
+            )
+        else:
+            if self._default_huffman is None:
+                self._default_huffman = de.huffman_params(huffman, self.device)
+            params = de.EncodeParams(recip, corr, *self._default_huffman)
+            scans, budget = de.device_encode_scans(
+                px, width, height, color_type, config, params
+            )
         self.last_encode_path = "device-v2"
         self.last_budget = budget
 
@@ -430,6 +458,20 @@ class Encoder:
         if config.restart_interval is not None:
             out += segments.dri(config.restart_interval)
         return bytes(out)
+
+
+def optimize_tables(hists, huffman, width, height, color_type, config) -> int:
+    """The host half of the two-pass mode: replace ``huffman``'s leading
+    (dc, ac) pairs in place with the K.2 tables built from ``hists`` (the
+    (T, 2, 257) device counts, the reserved symbol not yet seeded) and
+    return the ladder's budget hint from the exact stream size."""
+    pairs = [(h[0], h[1]) for h in np.asarray(hists, dtype=np.int64)]
+    for i, tables in enumerate(tables_from_histograms(pairs)):
+        huffman[i] = list(tables)
+    return budget_hint_from_bits(
+        exact_stream_bits(pairs, huffman[:len(pairs)]),
+        _plan_pack_rows(width, height, color_type, config),
+    )
 
 
 def _freeze_qspec(spec):

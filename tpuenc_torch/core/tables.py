@@ -343,15 +343,22 @@ def optimized_huffman_table(freq: np.ndarray) -> HuffmanTable:
     the *largest* index among minimum-frequency nonzero bins.  Bin 256 is the
     reserved symbol guaranteeing no code is all ones.
 
-    The port builds the table in Python; ``tpuenc`` also has a native
-    build of the same tables (``native.build_k2``), which comes with the
-    two-pass mode (ROADMAP M7).
+    The build runs in native C++ (``native.build_k2``): it sits on the
+    two-pass critical path between the histogram fetch and the pack.  The
+    Python build runs only where the native one reports a degenerate
+    histogram, as in ``tpuenc``; both give identical tables.
     """
+    from ..entropy import native
+
+    nk = native.build_k2(np.asarray(freq, dtype=np.int64))
+    if nk is not None:
+        return huffman_table(*nk)
     return _optimized_huffman_table_py(freq)
 
 
 def _optimized_huffman_table_py(freq: np.ndarray) -> HuffmanTable:
-    """Pure-Python K.2 build (``tpuenc``'s oracle for its native build)."""
+    """Pure-Python K.2 build: the oracle of the native build, and the
+    build of the degenerate histograms it declines."""
     freq = [int(f) for f in np.asarray(freq, dtype=np.int64)]
     assert len(freq) == 257
     others = [-1] * 257

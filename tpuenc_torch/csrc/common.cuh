@@ -41,4 +41,37 @@ __device__ __forceinline__ void or_at(uint32_t* row, long long cap,
     if (ph != 0 && d + 1 < cap) atomicOr(row + d + 1, w << (32 - ph));
 }
 
+// Serial writer of one block's bit string into its own row of `cap`
+// words (K2, K6): items are appended MSB first through a 64-bit
+// accumulator; words past the capacity are dropped (the overflow flags
+// report that case) and finish() zero-fills the rest of the row.
+struct BitWriter {
+    uint32_t* row;
+    int cap;
+    int w = 0;
+    int n = 0;          // bits held in acc, MSB-aligned at bit 63
+    uint64_t acc = 0;
+
+    // Append an MSB-aligned item of `len` <= 32 bits.
+    __device__ __forceinline__ void put(uint32_t word, int len) {
+        if (len <= 0) return;
+        acc |= (uint64_t)word << (32 - n);
+        n += len;
+        if (n >= 32) {
+            if (w < cap) row[w] = (uint32_t)(acc >> 32);
+            ++w;
+            acc <<= 32;
+            n -= 32;
+        }
+    }
+
+    __device__ __forceinline__ void finish() {
+        if (n > 0) {
+            if (w < cap) row[w] = (uint32_t)(acc >> 32);
+            ++w;
+        }
+        for (; w < cap; ++w) row[w] = 0;
+    }
+};
+
 }  // namespace tpuenc

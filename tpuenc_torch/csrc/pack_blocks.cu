@@ -26,6 +26,7 @@
 namespace {
 
 using tpuenc::bit_length;
+using tpuenc::BitWriter;
 using tpuenc::mask32;
 using tpuenc::shl32;
 
@@ -37,35 +38,6 @@ struct PackParams {
     int ac_tab[kMaxPattern];   // AC table id per pattern position
     int ss, se, emit_dc;       // spectral band [ss, se); DC item or not
     int cap8, cap16, cap32, cap64, cap_final;  // block_caps()[2..5], +1
-};
-
-struct BitWriter {
-    uint32_t* row;
-    int cap;
-    int w = 0;
-    int n = 0;          // bits held in acc, MSB-aligned at bit 63
-    uint64_t acc = 0;
-
-    // Append an MSB-aligned item of `len` <= 32 bits.
-    __device__ __forceinline__ void put(uint32_t word, int len) {
-        if (len <= 0) return;
-        acc |= (uint64_t)word << (32 - n);
-        n += len;
-        if (n >= 32) {
-            if (w < cap) row[w] = (uint32_t)(acc >> 32);
-            ++w;
-            acc <<= 32;
-            n -= 32;
-        }
-    }
-
-    __device__ __forceinline__ void finish() {
-        if (n > 0) {
-            if (w < cap) row[w] = (uint32_t)(acc >> 32);
-            ++w;
-        }
-        for (; w < cap; ++w) row[w] = 0;
-    }
 };
 
 __global__ void __launch_bounds__(128)
@@ -124,7 +96,9 @@ pack_blocks_kernel(const int16_t* __restrict__ q, long long n_blocks,
                 const int size = bit_length(v < 0 ? -v : v);
                 const uint32_t extra = (uint32_t)(v - (v < 0)) & mask32(size);
                 const int sym = ((run & 15) << 4) | size;
-                const uint32_t lut = act[sym];
+                // The TPU kernel looks the symbol up in two 128-entry
+                // halves, so sym 256 (size 16) reads entry 128.
+                const uint32_t lut = act[sym < 256 ? sym : 128 + (sym & 127)];
                 len = (int)(lut >> 16) + size;
                 word = shl32(shl32(lut & 0xFFFF, size) | extra, 32 - len);
                 prev = k;

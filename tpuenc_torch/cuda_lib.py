@@ -49,6 +49,14 @@ _SIGNATURES = {
                           _P],
     # rows, pos, bits, R, W, out, capW, stream
     "tpuenc_concat_rows": [_P, _P, _P, _LL, _I, _P, _LL, _P],
+    # q, n_blocks, Bp, act, n_bands, bands, cap8, cap_f, words, lens,
+    # overflow, stream
+    "tpuenc_pack_acbands": [_P, _LL, _LL, _P, _I, _IP, _I, _I, _P, _P, _P,
+                            _P],
+    # q, n_blocks, n_bands, bands, out, stream
+    "tpuenc_hist_count": [_P, _LL, _I, _IP, _P, _P],
+    # q, n_blocks, Lp, ss, se, run4, size, parts, stream
+    "tpuenc_hist_sym": [_P, _LL, _LL, _I, _I, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -81,23 +89,42 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libtpuenc_torch_kernels-{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds) -> None:
+    """Run the commands at once and raise on the first that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                          f"{stdout}\n{stderr}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def _build(out: str) -> None:
+    """One nvcc per source, all started together, then one link."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cus = [p for p in _sources() if p.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cus]
+    objdir = tempfile.mkdtemp(dir=BUILD_DIR)
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = []
+    cmds = []
+    for src in (p for p in _sources() if p.endswith(".cu")):
+        obj = os.path.join(objdir, os.path.basename(src) + ".o")
+        objs.append(obj)
+        cmds.append([_nvcc(), *compile_flags, "-I", CSRC, "-c", "-o", obj, src])
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                f"{res.stdout}\n{res.stderr}"
-            )
+        _run_all(cmds)
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-o", tmp, *objs]])
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+        shutil.rmtree(objdir, ignore_errors=True)
 
 
 def library():

@@ -1,17 +1,19 @@
 """Device encode: pixels -> finished scan bytes.
 
-Counterpart of ``tpuenc/entropy/device_encode.py`` for single-scan
-(interleaved) default-table modes.  On the encode device: the coefficient
-stream (``kernels.pipeline.fn_cm``), the DC differences, P1-P4
-(``entropy.pallas_pack``) and a small ``meta`` vector.  The host reads
-``meta`` (overflow flag, scan bits, per-segment bits), copies the first
-``total_words`` words of the stream, and finishes each restart segment
-with the native realigner (byte-align, 1-pad, 0xFF-stuff, RST markers).
+Counterpart of ``tpuenc/entropy/device_encode.py``.  On the encode device:
+the coefficient streams (``kernels.pipeline.fn_cm``), P1 of every scan of
+the plan (``entropy.pallas_pack``: the DC path for DC-only scans, K6 for
+groups of AC band scans of one component, K2 for the rest), one shared
+P2-P4 merge of all scans' block strings in plan order, and a small
+``meta`` vector.  The host reads ``meta`` (overflow flag, scan bits,
+per-segment bits), copies the first ``total_words`` words of the stream,
+and finishes each scan's restart segments from its bit offset with the
+native realigner (byte-align, 1-pad, 0xFF-stuff, RST markers).
 
 The packer's capacities follow a words-per-block budget.  An encode starts
 at the lowest rung of :data:`BUDGET_LADDER` (or the rung learned for its
-shape and config) and climbs on overflow; the top rung (224 words per
-block) cannot overflow.
+shape and config, or the first rung that covers a content hint) and climbs
+on overflow; the top rung (224 words per block) cannot overflow.
 """
 
 from __future__ import annotations
@@ -26,7 +28,12 @@ from ..core.types import ColorType, EncoderConfig
 from . import native
 from .device_pack import ScanSpec
 from .huffopt import progressive_bands
-from .pallas_pack import merge_pack_stream, scan_pack_blocks
+from .pallas_pack import (
+    dc_only_pack_blocks,
+    merge_pack_stream,
+    scan_pack_blocks,
+    scan_pack_blocks_acbands,
+)
 
 # Budget rungs in words per block: per-block caps clamp to >= 16, the
 # aggregate P2-P4 caps use the rung as it is (tpuenc.entropy.device_encode
@@ -162,43 +169,128 @@ def _pack_tables(dc_sizes, dc_codes, ac_sizes, ac_codes):
             ac.astype(np.uint32).view(np.int32))
 
 
+def _on(device, arrays):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in arrays)
+
+
+def quant_params(q_tables, device):
+    """K1's (reciprocals, corrections): int32 (2, 64) zigzag-ordered
+    tensors on ``device`` from the (luma, chroma) quantization tables
+    (objects with natural-order ``reciprocals`` and ``corrections``)."""
+    from ..kernels.pallas_fdct import zigzag_params
+
+    return _on(device, (np.stack(a) for a in zip(*map(zigzag_params, q_tables))))
+
+
+def huffman_params(huffman, device):
+    """The packed Huffman tables (dc (1, 128), ac (T, 256), int32) on
+    ``device`` from ``[(dc, ac) per table id]``."""
+    return _on(device, _pack_tables(*tables_to_arrays(huffman)))
+
+
 def params_from_numpy(q_tables, dc_sizes, dc_codes, ac_sizes, ac_codes,
                       device) -> EncodeParams:
     """The encoder's parameters as tensors on ``device``.
 
-    ``q_tables``: the (luma, chroma) quantization tables (objects with
-    natural-order ``reciprocals`` and ``corrections``); the four (T, 256)
-    arrays are :func:`tables_to_arrays`' output."""
-    from ..kernels.pallas_fdct import zigzag_params
-
-    recip, corr = (np.stack(a) for a in zip(*map(zigzag_params, q_tables)))
-    dc, ac = _pack_tables(dc_sizes, dc_codes, ac_sizes, ac_codes)
-    return EncodeParams(*(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                          for a in (recip, corr, dc, ac)))
+    ``q_tables``: the (luma, chroma) quantization tables (see
+    :func:`quant_params`); the four (T, 256) arrays are
+    :func:`tables_to_arrays`' output."""
+    return EncodeParams(*quant_params(q_tables, device), *_on(
+        device, _pack_tables(dc_sizes, dc_codes, ac_sizes, ac_codes)))
 
 
-def _pack_scans_v2(stream, spec: ScanSpec, params: EncodeParams, budget: int):
-    """Pack one scan's (64, B) stream.  Returns ``(stream_words int32,
-    meta int64)`` with meta = [overflow, scan_bits, seg_bits...]
-    (unpadded segment bit counts), both on the stream's device."""
-    B = stream.shape[1]
-    words, lens, ovf = scan_pack_blocks(stream, spec, params.dc, params.ac,
-                                        budget)
-    seg = spec.seg_blocks if spec.seg_blocks > 0 else B
-    n_seg = -(-B // seg)
-    lens_real = torch.nn.functional.pad(lens[:B].to(torch.int64),
-                                        (0, n_seg * seg - B))
-    seg_bits = lens_real.view(n_seg, seg).sum(1)
-    out, total_bits, ovf2 = merge_pack_stream(words, lens, budget)
-    meta = torch.cat([(ovf | ovf2).to(torch.int64), total_bits.view(1),
-                      seg_bits])
+def _band_groups(scan_plan):
+    """K6's launches: for each component, its AC-only band scans sorted
+    by band start, in batches of at most 4; a lone tail band is left to
+    K2, as ``tpuenc`` groups them."""
+    groups: dict = {}
+    for i, (stream_idx, spec, _) in enumerate(scan_plan):
+        if spec.emit_ac and not spec.emit_dc and len(spec.ac_tab_pattern) == 1:
+            groups.setdefault(stream_idx, []).append(i)
+    batches = []
+    for stream_idx, idxs in groups.items():
+        order = sorted(idxs, key=lambda i: scan_plan[i][1].spectral_start)
+        batches += [(stream_idx, order[k:k + 4])
+                    for k in range(0, len(order), 4) if len(order[k:k + 4]) > 1]
+    return batches
+
+
+def pack_scans_p1(comp_streams, scan_plan, params: EncodeParams,
+                  budget: int):
+    """P1 of every scan of the plan: K6 for the grouped AC band scans, the
+    DC path for DC-only scans, K2 for the rest.  Returns ``(words int32
+    (R, capB), lens int32 (R,), overflow int32 (1,), scan_bits,
+    seg_bits)``: every scan's block strings padded to one width and
+    concatenated in plan order, and per scan its total bits and its
+    unpadded segment bits (lists of int64 tensors)."""
+    dev = comp_streams[0].device
+    overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+    banded = {}
+    for stream_idx, batch in _band_groups(scan_plan):
+        outs, ovf = scan_pack_blocks_acbands(
+            comp_streams[stream_idx], [scan_plan[i][1] for i in batch],
+            params.ac, budget)
+        overflow = overflow | ovf
+        banded.update(zip(batch, outs))
+
+    strings = []
+    scan_bits = []
+    seg_bits = []
+    for i, (stream_idx, spec, _) in enumerate(scan_plan):
+        blocks = comp_streams[stream_idx]
+        B = blocks.shape[1]
+        if i in banded:
+            words, lens = banded[i]
+        else:
+            if spec.emit_dc and not spec.emit_ac:
+                words, lens, ovf = dc_only_pack_blocks(blocks, spec, params.dc)
+            else:
+                words, lens, ovf = scan_pack_blocks(blocks, spec, params.dc,
+                                                    params.ac, budget)
+            overflow = overflow | ovf
+        seg = spec.seg_blocks if spec.seg_blocks > 0 else B
+        n_seg = -(-B // seg)
+        lens_real = torch.nn.functional.pad(lens[:B].to(torch.int64),
+                                            (0, n_seg * seg - B))
+        seg_bits.append(lens_real.view(n_seg, seg).sum(1))
+        scan_bits.append(seg_bits[-1].sum().view(1))  # padding blocks: 0 bits
+        strings.append((words, lens))
+
+    if len(strings) == 1:
+        W, L = strings[0]
+    else:
+        capB = max(w.shape[1] for w, _ in strings)
+        W = torch.zeros((sum(w.shape[0] for w, _ in strings), capB),
+                        dtype=torch.int32, device=dev)
+        r = 0
+        for w, _ in strings:
+            W[r:r + w.shape[0], :w.shape[1]] = w
+            r += w.shape[0]
+        L = torch.cat([ln for _, ln in strings])
+    return W, L, overflow, scan_bits, seg_bits
+
+
+def _pack_scans_v2(comp_streams, scan_plan, params: EncodeParams,
+                   budget: int):
+    """Pack every scan of the plan: P1 per scan (:func:`pack_scans_p1`),
+    then ONE shared P2-P4 merge over all scans' block strings.  Returns
+    ``(stream_words int32, meta int64)`` with meta = [overflow,
+    scan_bits..., seg_bits...] (unpadded segment bit counts, scans in plan
+    order), both on the streams' device."""
+    W, L, overflow, scan_bits, seg_bits = pack_scans_p1(
+        comp_streams, scan_plan, params, budget)
+    out, _, ovf2 = merge_pack_stream(W, L, budget)
+    meta = torch.cat([(overflow | ovf2).to(torch.int64), *scan_bits,
+                      *seg_bits])
     return out, meta
 
 
 def _finish_scans_v2(buf_words, meta_np, n_scans: int,
                      seg_structure) -> List[bytes]:
     """Host finishing: copy the first ``total_words`` words of the raw
-    stream and realign / pad / stuff each scan's segments."""
+    stream (all scans' bits, concatenated in plan order) and realign /
+    pad / stuff each scan's segments from its bit offset."""
     scan_bits = meta_np[1:1 + n_scans]
     seg_bits = meta_np[1 + n_scans:]
     total_words = (int(scan_bits.sum()) + 31) >> 5
@@ -216,41 +308,53 @@ def _finish_scans_v2(buf_words, meta_np, n_scans: int,
     return scans
 
 
+def seg_structure(layout, scan_plan):
+    """Each scan's number of restart segments, from the blocks of the
+    stream it reads (the MCU stream, or its component's)."""
+    if layout["interleaved"]:
+        counts = [len(layout["mcu_block_comps"]) * layout["mcu_count"]]
+    else:
+        counts = list(layout["comp_block_counts"])
+    return [_n_segments(counts[si], spec.seg_blocks)
+            for si, spec, _ in scan_plan]
+
+
 def device_encode_scans(pixels, width: int, height: int,
                         color_type: ColorType, config: EncoderConfig,
-                        params: EncodeParams):
-    """Encode the single interleaved scan of ``pixels`` (an (H, W[, C])
-    uint8 tensor on the params' device).  Returns ``(scans, budget)``: the
-    per-scan entropy byte strings (stuffed, RST markers in place) and the
-    budget rung that packed them."""
+                        params: EncodeParams, comp_streams=None,
+                        budget_hint: int = 0):
+    """Encode every scan of ``pixels`` (an (H, W[, C]) uint8 tensor on the
+    params' device).  ``comp_streams``: the coefficient streams when they
+    are already on the device (the two-pass optimized-table flow), else
+    they are computed here.  ``budget_hint`` (words per pack row): without
+    a learned rung for this shape and config, the ladder starts at the
+    first rung that covers it; a learned rung wins over the hint.
+    Returns ``(scans, budget)``: the per-scan entropy byte strings
+    (stuffed, RST markers in place) in plan order, and the budget rung
+    that packed them."""
     from ..kernels.pipeline import fn_cm, scan_layout
 
     layout = scan_layout(width, height, color_type, config)
-    components = layout["components"]
-    scan_plan = build_scan_plan(layout, components, config)
-    if len(scan_plan) != 1 or not layout["interleaved"]:
-        raise NotImplementedError(
-            "multi-scan plans (sequential/progressive) are not ported yet: "
-            "ROADMAP M6"
-        )
-    (_, spec, _), = scan_plan
-    n_blocks = len(layout["mcu_block_comps"]) * layout["mcu_count"]
-    seg_structure = [_n_segments(n_blocks, spec.seg_blocks)]
+    scan_plan = build_scan_plan(layout, layout["components"], config)
+    segs = seg_structure(layout, scan_plan)
 
     key = (width, height, color_type, config, pixels.device.type)
     budgets = list(BUDGET_LADDER)
     if key in _budget_memo:
         budgets = [b for b in budgets if b >= _budget_memo[key]]
+    elif budget_hint > 0:
+        budgets = [b for b in budgets if b >= budget_hint] or [budgets[-1]]
 
-    (stream,) = fn_cm(pixels, width, height, color_type, config,
-                      params.reciprocals, params.corrections)
+    if comp_streams is None:
+        comp_streams = fn_cm(pixels, width, height, color_type, config,
+                             params.reciprocals, params.corrections)
     for budget in budgets:
-        buf, meta = _pack_scans_v2(stream, spec, params, budget)
+        buf, meta = _pack_scans_v2(comp_streams, scan_plan, params, budget)
         meta_np = meta.cpu().numpy()
         if meta_np[0]:  # overflow: next rung
             continue
         _memo_put(key, budget)
-        return _finish_scans_v2(buf, meta_np, 1, seg_structure), budget
+        return _finish_scans_v2(buf, meta_np, len(scan_plan), segs), budget
     raise RuntimeError(
         f"every budget rung overflowed ({width}x{height} {color_type})"
     )

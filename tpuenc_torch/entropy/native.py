@@ -1,10 +1,11 @@
 """ctypes binding to the repository's native entropy library.
 
-Counterpart of ``tpuenc/entropy/native.py``.  The port needs one function
-of ``native/entropy.cpp`` on its path: ``tpuenc_realign_segments``, which
-turns the device's bit-granular scan stream into finished scan bytes (per
-restart segment: shift to a byte boundary, 1-pad the tail, 0xFF-stuff,
-insert RST markers).
+Counterpart of ``tpuenc/entropy/native.py``.  The port needs two
+functions of ``native/entropy.cpp`` on its path: ``tpuenc_realign_segments``,
+which turns the device's bit-granular scan stream into finished scan bytes
+(per restart segment: shift to a byte boundary, 1-pad the tail,
+0xFF-stuff, insert RST markers), and ``tpuenc_build_k2``, the Annex K.2
+table build of the two-pass optimized-table mode.
 
 The library is built with g++ from the unchanged ``native/entropy.cpp``
 into the port's own build directory (``tpuenc_torch/_build``), under a
@@ -73,6 +74,12 @@ def _load():
             ctypes.c_longlong, # out capacity
             ctypes.c_int,      # skip_first (segment 0 = offset, not emitted)
         ]
+        lib.tpuenc_build_k2.restype = ctypes.c_int32
+        lib.tpuenc_build_k2.argtypes = [
+            ctypes.c_void_p,   # freq int64 (257,)
+            ctypes.c_void_p,   # lengths out uint8 (16,)
+            ctypes.c_void_p,   # values out uint8 (256,)
+        ]
         _lib = lib
         return _lib
 
@@ -105,6 +112,25 @@ def realign_segments(data: bytes, seg_bits, bit_offset: int = 0) -> bytes:
     if n < 0:
         raise RuntimeError(f"tpuenc_realign_segments failed ({n})")
     return out[:n].tobytes()
+
+
+def build_k2(freq: np.ndarray):
+    """Native Annex K.2 table build from a 257-bin histogram (bin 256 is
+    the reserved symbol).  Returns ``(lengths[16], values)``, or None when
+    the native build reports a degenerate histogram (``n < 0``); the
+    caller then runs the Python build, as ``tpuenc`` does."""
+    lib = _load()
+    freq = np.ascontiguousarray(freq, dtype=np.int64)
+    if freq.shape != (257,):
+        raise ValueError(f"expected a 257-bin histogram, got {freq.shape}")
+    lengths = np.zeros(16, dtype=np.uint8)
+    values = np.zeros(256, dtype=np.uint8)
+    n = lib.tpuenc_build_k2(
+        freq.ctypes.data, lengths.ctypes.data, values.ctypes.data
+    )
+    if n < 0:
+        return None
+    return lengths.tolist(), values[:n].tolist()
 
 
 def realign_segments_py(data: bytes, seg_bits, bit_offset: int = 0) -> bytes:

@@ -1,11 +1,15 @@
-"""Entropy bit packing on the device: P1 (K2), P2 (K3), P3 (K4), P4 (K5).
+"""Entropy bit packing on the device: P1 (K2, K6), P2 (K3), P3 (K4), P4 (K5).
 
 Counterpart of ``tpuenc/entropy/pallas_pack.py``.  The four stages turn a
 coefficient-major (64, B) int16 block stream into one raw bit
 concatenation of the blocks' Huffman codes (no byte alignment: the host
 realigns, pads and stuffs each restart segment):
 
-* P1, :func:`pack_blocks` (K2): one MSB-aligned bit string per block.
+* P1, :func:`pack_blocks` (K2): one MSB-aligned bit string per block, for
+  an interleaved or sequential scan or one band; :func:`pack_acbands`
+  (K6): the strings of up to 7 progressive AC bands of one component in
+  one pass; :func:`dc_only_pack_blocks`: the one-word strings of a DC-only
+  scan (plain PyTorch, as it is XLA in ``tpuenc``).
 * P2, :func:`merge_chunks` (K3): 128 substreams of consecutive blocks,
   each cut into chunks merged into one row.
 * P3, :func:`fold_rows` (K4): each substream's chunk rows folded into one
@@ -135,14 +139,11 @@ def _mask(n):
 
 
 def _bit_length(av):
-    """Magnitude category of a non-negative int64 tensor (< 2^31)."""
-    size = torch.zeros_like(av)
-    v = av.clone()
-    for s in (16, 8, 4, 2, 1):
-        big = v >= (1 << s)
-        size = torch.where(big, size + s, size)
-        v = torch.where(big, v >> s, v)
-    return torch.where(av == 0, 0, size + 1)
+    """Magnitude category of a non-negative int64 tensor (< 2^53): 0 for
+    0, else its bit length, which is frexp's exponent (exact in
+    float64)."""
+    exp = torch.frexp(av.to(torch.float64)).exponent.to(torch.int64)
+    return torch.where(av == 0, 0, exp)
 
 
 def _scatter_words(n_rows: int, cap: int, row_idx, off, words, active):
@@ -173,13 +174,64 @@ def _p1_caps(budget: int):
 
 
 def _check_spec(spec: ScanSpec):
-    if not spec.emit_ac or spec.spectral_start >= spec.spectral_end:
-        raise NotImplementedError(
-            "DC-only and empty-band scans (progressive) are not ported yet: "
-            "ROADMAP M6"
-        )
     if len(spec.dc_tab_pattern) > 16:
         raise ValueError("table pattern longer than 16 blocks")
+
+
+def _k2_band(spec: ScanSpec):
+    """The band K2 codes: the scan's own, or for a DC-only scan the empty
+    band [0, 0), which gives no AC item and no EOB."""
+    if spec.emit_ac:
+        return spec.spectral_start, spec.spectral_end
+    return 0, 0
+
+
+def _ac_items(qq, ss: int, se: int, acl, act, valid):
+    """The AC items of band [ss, se) (P1's slot items, as the TPU kernels
+    place them): ``qq`` int64 (64, Bp) coefficients; ``acl`` int64 (T,
+    256) AC tables; ``act`` the table id of every block ((Bp,) or a
+    scalar); ``valid`` (Bp,) bool.  Returns ``(lens, words, last)``:
+    int64 (64, Bp) item lengths and MSB-aligned words, zero outside the
+    band (a ZRL sits in the zero slot with ``run % 16 == 15`` before the
+    band's last nonzero), and each block's last nonzero slot of the band,
+    -1 if none."""
+    dev = qq.device
+    Bp = qq.shape[1]
+    slot = torch.arange(64, device=dev)[:, None]
+    in_band = (slot >= ss) & (slot < se)
+    band = torch.where(in_band, qq, 0)
+    nz = band != 0
+    lastnz = torch.where(nz, slot, -1).cummax(dim=0).values
+    prevnz = torch.cat(
+        [torch.full((1, Bp), -1, dtype=torch.int64, device=dev), lastnz[:-1]]
+    ).clamp(min=ss - 1)
+    run = slot - prevnz - 1
+    size = _bit_length(band.abs())
+    extra = (band - (band < 0).long()) & _mask(size)
+    sym = ((run & 15) << 4) | size
+    # The TPU kernels look symbols up in two 128-entry halves: sym 256
+    # (size 16) reads entry 128.
+    sym = torch.where(sym < 256, sym, 128 + (sym & 127))
+    lut = acl[act, sym]
+    sym_len = (lut >> 16) + size
+    sym_w = _shl(_shl(lut & 0xFFFF, size) | extra, 32 - sym_len)
+    zrl = acl[act, 0xF0]
+    zrl_len = zrl >> 16
+    zrl_w = _shl(zrl & 0xFFFF, 32 - zrl_len)
+    last = lastnz[63]
+    item = nz & valid
+    zrl_here = (~nz) & in_band & ((run & 15) == 15) & (slot < last) & valid
+    lens = torch.where(item, sym_len, torch.where(zrl_here, zrl_len, 0))
+    words = torch.where(item, sym_w, torch.where(zrl_here, zrl_w, 0))
+    return lens, words, last
+
+
+def _eob_item(acl, act, last, se: int, valid):
+    """Each block's EOB item (length, MSB-aligned word), int64 (Bp,): set
+    when the band's last nonzero lies below se - 1."""
+    eob = acl[act, 0]
+    eob_len = torch.where((last < se - 1) & valid, eob >> 16, 0)
+    return eob_len, _shl(eob & 0xFFFF, 32 - eob_len.clamp(max=32))
 
 
 def pack_blocks_ref(q, dcdiff, dc_tab, ac_tab, spec: ScanSpec, Bp: int,
@@ -195,7 +247,7 @@ def pack_blocks_ref(q, dcdiff, dc_tab, ac_tab, spec: ScanSpec, Bp: int,
     _check_spec(spec)
     dev = q.device
     B = q.shape[1]
-    ss, se = spec.spectral_start, spec.spectral_end
+    ss, se = _k2_band(spec)
     cap8, cap16, cap32, cap64, capB = _p1_caps(budget)
 
     qq = torch.zeros((64, Bp), dtype=torch.int64, device=dev)
@@ -204,7 +256,6 @@ def pack_blocks_ref(q, dcdiff, dc_tab, ac_tab, spec: ScanSpec, Bp: int,
     diff[:B] = dcdiff
     bidx = torch.arange(Bp, device=dev)
     valid = bidx < B
-    slot = torch.arange(64, device=dev)[:, None]
     pos = bidx % len(spec.dc_tab_pattern)
     dct = torch.zeros(Bp, dtype=torch.int64, device=dev)
     act = torch.zeros(Bp, dtype=torch.int64, device=dev)
@@ -214,9 +265,8 @@ def pack_blocks_ref(q, dcdiff, dc_tab, ac_tab, spec: ScanSpec, Bp: int,
     dcl = _u32(dc_tab.reshape(-1))
     acl = _u32(ac_tab)
 
-    lens = torch.zeros((64, Bp), dtype=torch.int64, device=dev)
-    words = torch.zeros((64, Bp), dtype=torch.int64, device=dev)
-    if spec.emit_dc:
+    lens, words, last = _ac_items(qq, ss, se, acl, act[None, :], valid)
+    if spec.emit_dc:  # slot 0 holds the DC item
         size = _bit_length(diff.abs())
         extra = (diff - (diff < 0).long()) & _mask(size)
         lut = torch.where(size < 16, dcl[dct * 16 + size.clamp(max=15)], 0)
@@ -224,39 +274,7 @@ def pack_blocks_ref(q, dcdiff, dc_tab, ac_tab, spec: ScanSpec, Bp: int,
         lens[0] = dc_len
         words[0] = _shl(_shl(lut & 0xFFFF, size) | extra, 32 - dc_len)
 
-    in_band = (slot >= ss) & (slot < se)
-    band = torch.where(in_band, qq, 0)
-    nz = band != 0
-    lastnz = torch.where(nz, slot, -1).cummax(dim=0).values
-    prevnz = torch.cat(
-        [torch.full((1, Bp), -1, dtype=torch.int64, device=dev), lastnz[:-1]]
-    ).clamp(min=ss - 1)
-    run = slot - prevnz - 1
-    size = _bit_length(band.abs())
-    extra = (band - (band < 0).long()) & _mask(size)
-    sym = ((run & 15) << 4) | size
-    lut = acl[act[None, :], sym]
-    sym_len = (lut >> 16) + size
-    sym_w = _shl(_shl(lut & 0xFFFF, size) | extra, 32 - sym_len)
-    zrl = acl[act, 0xF0]
-    zrl_len = zrl >> 16
-    zrl_w = _shl(zrl & 0xFFFF, 32 - zrl_len)
-    last = lastnz[63]
-    item = nz & valid
-    zrl_here = (~nz) & in_band & ((run & 15) == 15) & (slot < last) & valid
-    ac_slots = in_band & (slot > 0) if spec.emit_dc else in_band
-    lens = torch.where(ac_slots, torch.where(item, sym_len,
-                                             torch.where(zrl_here, zrl_len, 0)),
-                       lens)
-    words = torch.where(ac_slots, torch.where(item, sym_w,
-                                              torch.where(zrl_here, zrl_w, 0)),
-                        words)
-
-    eob = acl[act, 0]
-    eob_flag = (last < se - 1) & valid
-    eob_len = torch.where(eob_flag, eob >> 16, 0)
-    eob_w = _shl(eob & 0xFFFF, 32 - eob_len.clamp(max=32))
-
+    eob_len, eob_w = _eob_item(acl, act, last, se, valid)
     total64 = lens.sum(0)
     total = total64 + eob_len
     ovf = (
@@ -295,6 +313,7 @@ def pack_blocks(q, dcdiff, dc_tab, ac_tab, spec: ScanSpec, Bp: int,
     if max(spec.dc_tab_pattern + spec.ac_tab_pattern) >= min(n_tabs, 8):
         raise ValueError("table pattern names a missing table")
     caps = _p1_caps(budget)
+    ss, se = _k2_band(spec)
     words = torch.empty((Bp, caps[-1]), dtype=torch.int32, device=dev)
     lens = torch.empty(Bp, dtype=torch.int32, device=dev)
     ovf = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -304,7 +323,7 @@ def pack_blocks(q, dcdiff, dc_tab, ac_tab, spec: ScanSpec, Bp: int,
             q.data_ptr(), B, Bp, dcdiff.data_ptr(), dc_tab.data_ptr(),
             ac_tab.data_ptr(),
             cuda_lib.int_array(spec.dc_tab_pattern + spec.ac_tab_pattern),
-            len(spec.dc_tab_pattern), spec.spectral_start, spec.spectral_end,
+            len(spec.dc_tab_pattern), ss, se,
             int(spec.emit_dc), cuda_lib.int_array(caps), words.data_ptr(),
             lens.data_ptr(), ovf.data_ptr(), cuda_lib.stream_of(q),
         ),
@@ -348,9 +367,206 @@ def scan_pack_blocks(blocks, spec: ScanSpec, dc_packed, ac_packed,
     block however small the aggregate budget is."""
     B = blocks.shape[1]
     Bp = -(-B // tile) * tile
+    if spec.emit_ac and not spec.emit_dc and \
+            spec.spectral_start >= spec.spectral_end:
+        # The empty band [1, 1) of plans with 34 or more scans
+        # (encoder.rs:926-936): no symbols and not even an EOB
+        # (writer.rs:364-384), so every block is 0 bits.
+        return _zero_strings(Bp, blocks.device)
     dcdiff = dc_diffs_from_dc(blocks[0], spec)
     return pack_blocks(blocks.contiguous(), dcdiff, dc_packed, ac_packed, spec,
                        Bp, max(budget, 16))
+
+
+def _zero_strings(Bp: int, device):
+    """P1's output for a scan of empty strings: words (Bp, 1), lens (Bp,)
+    and the overflow flag, all zero."""
+    return (torch.zeros((Bp, 1), dtype=torch.int32, device=device),
+            torch.zeros(Bp, dtype=torch.int32, device=device),
+            torch.zeros(1, dtype=torch.int32, device=device))
+
+
+def dc_only_pack_blocks(blocks, spec: ScanSpec, dc_packed, tile: int = 512):
+    """P1 of a DC-only scan (the progressive DC passes): one item of at
+    most 27 bits per block, so one word per block.  Plain PyTorch, as it
+    is XLA in ``tpuenc`` (``pallas_pack._dc_only_pack_blocks``).  Returns
+    ``(words int32 (Bp, 1), lens int32 (Bp,), overflow int32 (1,))`` with
+    Bp = B rounded up to ``tile``; the flag is always 0."""
+    dev = blocks.device
+    B = blocks.shape[1]
+    Bp = -(-B // tile) * tile
+    diff = dc_diffs_from_dc(blocks[0], spec).to(torch.int64)
+    size = _bit_length(diff.abs())
+    pat = spec.dc_tab_pattern
+    if len(set(pat)) == 1:
+        idx = size + 16 * int(pat[0])
+    else:
+        pos = torch.arange(B, device=dev) % len(pat)
+        tab = torch.full((B,), int(pat[0]), dtype=torch.int64, device=dev)
+        for p in range(1, len(pat)):
+            tab = torch.where(pos == p, int(pat[p]), tab)
+        idx = size + 16 * tab
+    lut = _u32(dc_packed.reshape(-1))[idx]
+    blen = (lut >> 16) + size
+    # size <= 16 and blen <= 32, so no shift here needs _shl's guards, and
+    # (code << size | extra) < 2^blen keeps the word below 2^32.
+    extra = (diff - (diff < 0).long()) & ((1 << size) - 1)
+    word = (((lut & 0xFFFF) << size) | extra) << (32 - blen)
+    words, lens, ovf = _zero_strings(Bp, dev)
+    words[:B, 0] = _to_i32(word)
+    lens[:B] = blen.to(torch.int32)
+    return words, lens, ovf
+
+
+# ---------------------------------------------------------------------------
+# P1 of several AC bands of one component (K6).
+# ---------------------------------------------------------------------------
+
+def band_tree_caps(budget: int, ss: int, se: int):
+    """Merge-tree plan of one spectral band ``[ss, se)`` packed from 8-slot
+    chunks, as the TPU kernel builds it: ``(row0, row1, gen_caps,
+    cap_final)`` where rows ``[8*row0, 8*row1)`` cover the band,
+    ``gen_caps`` are the pairwise levels' capacities over the band's chunk
+    count padded to a power of two, and ``cap_final`` includes the EOB
+    word."""
+    row0 = ss // 8
+    row1 = -(-se // 8)
+    nc = row1 - row0
+    ncp = 1 << max(0, (nc - 1).bit_length())
+    c = block_caps(budget)[2]  # capacity of one 8-slot chunk
+    gen_caps = []
+    n_slots = 8
+    while ncp > 1:
+        n_slots *= 2
+        limit = max(5, (budget * n_slots + 63) // 64 + 2)
+        c = min(2 * c, limit)
+        gen_caps.append(c)
+        ncp //= 2
+    return row0, row1, gen_caps, c + 1
+
+
+def pack_acbands_ref(q, bands, ac_tab, tab: int, Bp: int, budget: int):
+    """Plain version of K6.
+
+    ``q``: int16 (64, B) coefficients of one component; ``bands``: up to
+    7 non-empty spectral bands ``(ss, se)``; ``ac_tab``: int32 (T, 256)
+    packed AC tables, of which ``tab`` codes every band; ``Bp >= B``
+    output rows; ``budget``: the block-level budget (callers pass
+    ``max(budget, 16)``).  Returns ``(words int32 (n_bands, Bp, cap_f),
+    lens int32 (n_bands, Bp), overflow int32 (1,))``: each band's bit
+    string (AC items, then EOB) clipped at its ``cap_band`` words and
+    zero-padded to cap_f = max(cap_band), and the flag of the TPU
+    kernel's merge tree (:func:`band_tree_caps`)."""
+    dev = q.device
+    B = q.shape[1]
+    qq = torch.zeros((64, Bp), dtype=torch.int64, device=dev)
+    qq[:, :B] = q
+    bidx = torch.arange(Bp, device=dev)
+    valid = bidx < B
+    acl = _u32(ac_tab)
+    cap8 = block_caps(budget)[2]
+    plans = [band_tree_caps(budget, ss, se) for ss, se in bands]
+    cap_f = max(p[3] for p in plans)
+    words = torch.zeros((len(bands), Bp, cap_f), dtype=torch.int32, device=dev)
+    lens = torch.zeros((len(bands), Bp), dtype=torch.int32, device=dev)
+    ovf = torch.zeros((), dtype=torch.bool, device=dev)
+    for b, ((ss, se), (row0, row1, gen_caps, cap_band)) in enumerate(
+            zip(bands, plans)):
+        item_len, item_w, last = _ac_items(qq, ss, se, acl, tab, valid)
+        chunks = item_len.view(8, 8, Bp).sum(1)
+        ovf = ovf | (chunks > 32 * cap8).any()
+        ncp = 1 << len(gen_caps)
+        level = torch.nn.functional.pad(chunks[row0:row1],
+                                        (0, 0, 0, ncp - (row1 - row0)))
+        for cap in gen_caps:
+            level = level.view(-1, 2, Bp).sum(1)
+            ovf = ovf | (level > 32 * cap).any()
+        eob_len, eob_w = _eob_item(acl, tab, last, se, valid)
+        total = item_len.sum(0) + eob_len
+        ovf = ovf | (total > 32 * cap_band).any()
+        all_len = torch.cat([item_len, eob_len[None]])
+        all_w = torch.cat([item_w, eob_w[None]])
+        off = torch.cumsum(all_len, 0) - all_len
+        words[b, :, :cap_band] = _scatter_words(
+            Bp, cap_band, bidx[None, :].expand(65, Bp), off, all_w,
+            all_len > 0)
+        lens[b] = total.to(torch.int32)
+    return words, lens, ovf.to(torch.int32).reshape(1)
+
+
+def pack_acbands(q, bands, ac_tab, tab: int, Bp: int, budget: int):
+    """K6 on ``q``'s device: the CUDA kernel for CUDA tensors, the plain
+    version (:func:`pack_acbands_ref`, same contract) for CPU tensors."""
+    if not cuda_lib.on_cuda(q, "pack_acbands"):
+        return pack_acbands_ref(q, bands, ac_tab, tab, Bp, budget)
+    dev = q.device
+    B = q.shape[-1]
+    n_tabs = ac_tab.shape[0]
+    cuda_lib.check_tensor("q", q, torch.int16, (64, B), dev)
+    cuda_lib.check_tensor("ac_tab", ac_tab, torch.int32, (n_tabs, 256), dev)
+    if Bp < B:
+        raise ValueError(f"Bp {Bp} < B {B}")
+    if not 0 <= tab < n_tabs:
+        raise ValueError(f"AC table {tab} of {n_tabs}")
+    if not 1 <= len(bands) <= 7 or any(not 0 <= ss < se <= 64
+                                       for ss, se in bands):
+        raise ValueError(f"pack_acbands: bands {bands}")
+    args = []
+    plans = [band_tree_caps(budget, ss, se) for ss, se in bands]
+    for (ss, se), (row0, _, gen_caps, cap_band) in zip(bands, plans):
+        args += [ss, se, row0, len(gen_caps),
+                 *(gen_caps + [0] * (3 - len(gen_caps))), cap_band]
+    cap_f = max(p[3] for p in plans)
+    words = torch.empty((len(bands), Bp, cap_f), dtype=torch.int32, device=dev)
+    lens = torch.empty((len(bands), Bp), dtype=torch.int32, device=dev)
+    ovf = torch.zeros(1, dtype=torch.int32, device=dev)
+    lib = cuda_lib.library()
+    cuda_lib.check(
+        lib.tpuenc_pack_acbands(
+            q.data_ptr(), B, Bp, ac_tab[tab].data_ptr(), len(bands),
+            cuda_lib.int_array(args), block_caps(budget)[2], cap_f,
+            words.data_ptr(), lens.data_ptr(), ovf.data_ptr(),
+            cuda_lib.stream_of(q),
+        ),
+        "tpuenc_pack_acbands",
+    )
+    pack_acbands.launches += 1
+    return words, lens, ovf
+
+
+pack_acbands.launches = 0
+
+
+def scan_pack_blocks_acbands(blocks, specs, ac_packed, budget: int, *,
+                             tile: int = 512):
+    """P1 of several AC-only band scans of one component in one K6
+    launch.  ``specs`` share one AC table; returns ``([(words (Bp,
+    cap_f), lens (Bp,)) per spec], overflow int32 (1,))`` with Bp = B
+    rounded up to ``tile``.  Empty bands ([1, 1), plans of 34 or more
+    scans) stay out of the kernel and get zero strings in their place."""
+    if not all(s.emit_ac and not s.emit_dc and len(s.ac_tab_pattern) == 1
+               for s in specs):
+        raise ValueError("scan_pack_blocks_acbands takes AC-only band scans")
+    tabs = {s.ac_tab_pattern[0] for s in specs}
+    if len(tabs) != 1:
+        raise ValueError(f"band scans of one launch share a table, got {tabs}")
+    B = blocks.shape[1]
+    Bp = -(-B // tile) * tile
+    live = [i for i, s in enumerate(specs)
+            if s.spectral_start < s.spectral_end]
+    outs = [None] * len(specs)
+    if len(live) < len(specs):
+        zero_w, zero_l, ovf = _zero_strings(Bp, blocks.device)
+        outs = [(zero_w, zero_l)] * len(specs)
+        if not live:
+            return outs, ovf
+    bands = tuple((specs[i].spectral_start, specs[i].spectral_end)
+                  for i in live)
+    words, lens, ovf = pack_acbands(blocks.contiguous(), bands, ac_packed,
+                                    tabs.pop(), Bp, max(budget, 16))
+    for k, i in enumerate(live):
+        outs[i] = (words[k], lens[k])
+    return outs, ovf
 
 
 # ---------------------------------------------------------------------------

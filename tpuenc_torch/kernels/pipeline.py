@@ -4,18 +4,19 @@ Counterpart of the coefficient-major path of ``tpuenc/kernels/pipeline.py``
 (``fn_cm``): color convert, edge-replicating pad to the MCU grid, point
 subsampling with the -128 level shift, blockify into (64, blocks), K1
 (fDCT + zigzag + quantize, :mod:`.pallas_fdct`), then the raster -> MCU
-column permutation of interleaved scans.  Semantics follow the reference
-exactly:
+column permutation of interleaved scans, or the per-component crop of
+sequential and progressive ones.  Semantics follow the reference exactly:
 
 * edge replication of the last row/column (encoder.rs:738-744), never
   zero padding;
 * chroma subsampling by point sampling with stride max/comp
   (encoder.rs:1222-1242);
 * interleaved scan order: MCU raster, then component, then v then h offset
-  (encoder.rs:759-769).
+  (encoder.rs:759-769);
+* per-component block grids of ceil(ceil(dim/8)/scale) (encoder.rs:
+  1012-1025).
 
-The port always runs coefficient-major; sequential and progressive
-per-component streams are still to port (ROADMAP M6).
+The port always runs coefficient-major.
 """
 
 from __future__ import annotations
@@ -110,18 +111,18 @@ def scan_layout(width: int, height: int, color_type: ColorType,
 
 def fn_cm(pixels, width: int, height: int, color_type: ColorType,
           config: EncoderConfig, reciprocals, corrections):
-    """The interleaved MCU coefficient stream of one image.
+    """The coefficient streams of one image, coefficient-major.
 
     ``pixels``: (H, W[, C]) uint8 tensor on the encode device;
     ``reciprocals``/``corrections``: int32 (2, 64) zigzag-ordered tensors
     on the same device (luma, chroma; see :func:`tpuenc_torch.params_from_numpy`).
-    Returns ``(stream,)`` with stream int16 (64, mcu_count * blocks_per_mcu).
+    Interleaved modes return ``(stream,)``, the MCU stream, int16 (64,
+    mcu_count * blocks_per_mcu).  Sequential and progressive modes return
+    one int16 (64, rows * cols) stream per component in its raster order,
+    cropped to the component's own ceil(ceil(W/8)/h_scale) x
+    ceil(ceil(H/8)/v_scale) grid (encoder.rs:1012-1025), which can be a
+    block narrower than the MCU-padded grid.
     """
-    if config.mode() != "interleaved":
-        raise NotImplementedError(
-            "per-component coefficient streams (sequential/progressive) "
-            "are not ported yet: ROADMAP M6"
-        )
     color_type = ColorType(color_type)
     components = init_components(color_type.jpeg_color_type,
                                  config.sampling_factor)
@@ -140,10 +141,18 @@ def fn_cm(pixels, width: int, height: int, color_type: ColorType,
         x_cm = _blockify_cm(plane, max_v // cv, max_h // ch)
         t = comp.quantization_table
         x = fdct_quantize(x_cm, reciprocals[t], corrections[t])
+        if config.mode() != "interleaved":
+            rows = _cdiv(_cdiv(height, 8), max_v // cv)
+            cols = _cdiv(_cdiv(width, 8), max_h // ch)
+            x = x.view(64, num_rows * cv, num_cols * ch)[:, :rows, :cols]
+            streams.append(x.reshape(64, rows * cols))
+            continue
         # Columns raster -> MCU order: factor as (rows, cv, cols, ch) and
         # swap (cv, cols).
         if cv > 1 or ch > 1:
             x = x.reshape(64, num_rows, cv, num_cols, ch).permute(0, 1, 3, 2, 4)
         streams.append(x.reshape(64, num_rows * num_cols, cv * ch))
+    if config.mode() != "interleaved":
+        return tuple(streams)
     mcu = torch.cat(streams, dim=-1)
     return (mcu.reshape(64, -1),)

@@ -1,11 +1,11 @@
-"""The interleaved frozen fixtures (``tests/fixtures/<name>.jpg``), rebuilt
-for the port.
+"""The 26 frozen fixtures (``tests/fixtures/<name>.jpg``), rebuilt for the
+port.
 
 Same inputs and encoder settings as ``tests/fixtures/generate.py``, which
 stays as it is (it builds ``tpuenc`` encoders and imports JAX); this map
-builds ``tpuenc_torch`` encoders on a given device.  Only the 17 fixtures
-whose scan is interleaved with default tables are here: the sequential,
-progressive and optimized-table ones wait for ROADMAP M6/M7.
+builds ``tpuenc_torch`` encoders on a given device.  It covers every mode:
+interleaved, sequential and progressive scans, default and optimized
+tables.
 """
 
 from __future__ import annotations
@@ -34,13 +34,17 @@ def build_cases(device):
     """name -> (encoder factory, color type, channels, seed, width, height),
     as ``generate.py:build_cases`` with every encoder on ``device``."""
 
-    def enc(q, sampling=None, restart=None):
+    def enc(q, sampling=None, restart=None, scans=None, optimize=False):
         def build():
             e = Encoder(q, device=device)
             if sampling is not None:
                 e.set_sampling_factor(sampling)
             if restart is not None:
                 e.set_restart_interval(restart)
+            if scans is not None:
+                e.set_progressive_scans(scans)
+            if optimize:
+                e.set_optimized_huffman_tables(True)
             return e
         return build
 
@@ -91,4 +95,21 @@ def build_cases(device):
         "q100_flat": (q100_flat, ColorType.RGB, 3, 22, W, H),
         "ycbcr_passthrough_q88": (enc(88), ColorType.YCBCR, 3, 23, W, H),
         "bgra_q90": (enc(90), ColorType.BGRA, 4, 24, W, H),
+        # Sequential, progressive and optimized-table modes.
+        "progressive4_q90": (enc(90, scans=4), ColorType.RGB, 3, 2, W, H),
+        "optimized_q95": (enc(95, optimize=True), ColorType.RGB, 3, 3, W, H),
+        "factor4_seq_q85": (
+            enc(85, SamplingFactor.F_4_1), ColorType.RGB, 3, 4, W, H),
+        "opt_prog3_rst3_q90": (
+            enc(90, restart=3, scans=3, optimize=True), ColorType.RGB, 3, 5,
+            W, H),
+        "f14_seq_q85": (
+            enc(85, SamplingFactor.F_1_4), ColorType.RGB, 3, 11, W, H),
+        "f42_seq_q75": (
+            enc(75, SamplingFactor.F_4_2), ColorType.RGB, 3, 12, W, H),
+        "f24_seq_q75": (
+            enc(75, SamplingFactor.F_2_4), ColorType.RGB, 3, 13, W, H),
+        "ycck_prog4_rst2_q90": (
+            enc(90, F22, 2, scans=4), ColorType.CMYK_AS_YCCK, 4, 16, W, H),
+        "luma_prog3_q85": (enc(85, scans=3), ColorType.LUMA, 1, 25, W, H),
     }
