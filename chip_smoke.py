@@ -7,15 +7,21 @@ Phases, each printing its own lines and its wall seconds:
 1. environment: the card (nvidia-smi name and power limit), torch, nvcc;
    no CUDA device is an error;
 2. build the CUDA kernels from ``tpuenc_torch/csrc`` (one nvcc per source,
-   all started together) and time the build;
-3. each kernel (K1-K7, K9) against its plain PyTorch version on the same
-   CUDA tensors, at the flagship's shapes (2000x1800 RGB, 56,250 blocks per
+   all started together) and time the build; beside it, ``nvcc -Xptxas -v``
+   reports the registers, stack and spills of K1, K2 and K8;
+3. each kernel (K1-K9) against its plain PyTorch version on the same CUDA
+   tensors, at the flagship's shapes (2000x1800 RGB, 56,250 blocks per
    component): K1 on the luma plane; K2 on the interleaved stream at block
-   budgets 16 and 48; K3-K5 at budget rungs 5 and 16; K6 on the
-   progressive luma stream with the 4-scan plan's three bands at block
-   budgets 16 and 48; K7 on the same stream and bands; K9 on its band
-   (1, 64).  Bit-exact (tolerance 0), with both times (CUDA events, median
-   of 10 warm runs);
+   budgets 16 and 48; K8 on the interleaved sample stream at the same
+   budgets, and on a 3840x2160 q80 4:2:0 image with restart interval 64
+   at budget 16, each also equal to K1 -> DC differences -> K2; K3-K5 at
+   budget rungs 5 and 16; K6 on the progressive luma stream with the
+   4-scan plan's three bands at block budgets 16 and 48; K7 on the same
+   stream and bands; K9 on its band (1, 64).  Bit-exact (tolerance 0),
+   with both times (CUDA events, median of 10 warm runs) and the kernel's
+   bound: the bytes it must move (each input read once, each output
+   written once; bit strings read only up to their lengths) over the
+   H100's 3.35 TB/s;
 4. the 26 frozen fixtures encoded on the card, byte for byte;
 5. the interleaved flagship, ``Encoder(90, device="cuda").encode(rgb,
    2000, 1800, ColorType.RGB)``: the same bytes as the CPU path, K1-K5
@@ -26,7 +32,12 @@ Phases, each printing its own lines and its wall seconds:
    ``set_optimized_huffman_tables(True)``): the same bytes as the CPU path
    (run in a child process, timed, its peak memory reported), K1, K3-K7
    launched and K2 not, the budget rung and the hint, warm end-to-end MP/s
-   (median of 7) and per-stage times.
+   (median of 7) and per-stage times;
+7. the interleaved flagship through K8, ``Encoder(90, device="cuda",
+   fused_p1=True)``, the budget memo cleared first: phase 5's bytes at
+   phase 5's rung, K8 and K3-K5 launched and K1 and K2 not, warm
+   end-to-end MP/s (median of 7) in turns with phase 5's encoder (split,
+   fused, fused, split), and per-stage times.
 
 It prints a JSON line of the kernels, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failure raises, so the
@@ -35,6 +46,7 @@ exit code is not 0 and no result line is printed.
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -45,6 +57,11 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP_W, FLAGSHIP_H = 2000, 1800
+# BASELINE.md's "4:2:0 restart64 4K" configuration.
+UHD_W, UHD_H = 3840, 2160
+# H100 SXM HBM3 bandwidth (NVIDIA's data sheet): every kernel here is
+# integer work with no matrix product, bounded by the bytes it moves.
+HBM_BYTES_PER_S = 3.35e12
 
 
 def make_rgb(w, h, seed=42):
@@ -84,6 +101,24 @@ def cuda_ms(fn, reps=10):
     return statistics.median(times)
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def string_bytes(lens):
+    """Bytes of the words that hold bit strings of ``lens`` bits: what a
+    merge must read of its input rows."""
+    return 4 * int(((lens.to(torch.int64) + 31) // 32).sum().item())
+
+
+def bound_ms(read_bytes, outputs):
+    """The least time of a kernel: its reads plus every output written
+    once, over the card's memory rate."""
+    if not isinstance(outputs, tuple):
+        outputs = (outputs,)
+    return (read_bytes + nbytes(*outputs)) / HBM_BYTES_PER_S * 1e3
+
+
 def max_abs_err(got, want):
     if isinstance(got, tuple):
         return max(max_abs_err(g, w) for g, w in zip(got, want))
@@ -105,39 +140,75 @@ def phase_env():
     print(f"device: {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
 
+PTXAS_REPORTED = ("fdct_quantize.cu", "pack_blocks.cu", "fused_sample_pack.cu")
+
+
 def phase_build():
+    """The library build, and beside it one ``-Xptxas -v`` compile of each
+    of K1, K2 and K8 for their registers, stack and spills."""
+    import tempfile
+
     from tpuenc_torch import cuda_lib
 
-    t0 = time.perf_counter()
-    cuda_lib.library()
-    print(f"build: {cuda_lib.library_path()} in "
-          f"{time.perf_counter() - t0:.2f} s")
+    os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=cuda_lib.BUILD_DIR)
+    flags = [f for f in cuda_lib.NVCC_FLAGS if f != "-shared"]
+    reports = {
+        src: subprocess.Popen(
+            [cuda_lib._nvcc(), *flags, "-Xptxas", "-v", "-I", cuda_lib.CSRC,
+             "-c", "-o", os.path.join(tmp, src + ".o"),
+             os.path.join(cuda_lib.CSRC, src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src in PTXAS_REPORTED}
+    try:
+        t0 = time.perf_counter()
+        cuda_lib.library()
+        print(f"build: {cuda_lib.library_path()} in "
+              f"{time.perf_counter() - t0:.2f} s")
+        for src, proc in reports.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc -Xptxas -v {src}:\n{out}")
+            lines = [ln.split("ptxas info    :")[-1].strip()
+                     for ln in out.splitlines()
+                     if "registers" in ln or "spill" in ln]
+            print(f"  ptxas {src}: {' | '.join(lines)}")
+    finally:
+        for proc in reports.values():
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp)
 
 
 def phase_kernels(dev):
     """Each kernel against its plain version on the flagship's tensors."""
     from tpuenc_torch import params_from_numpy
     from tpuenc_torch.core.tables import default_tables, quantization_table
-    from tpuenc_torch.core.types import ColorType, EncoderConfig
+    from tpuenc_torch.core.types import ColorType, EncoderConfig, SamplingFactor
+    from tpuenc_torch.entropy import device_encode as de
     from tpuenc_torch.entropy import pallas_hist as ph
     from tpuenc_torch.entropy import pallas_pack as pk
-    from tpuenc_torch.entropy.device_encode import build_scan_plan, tables_to_arrays
     from tpuenc_torch.entropy.huffopt import progressive_bands
     from tpuenc_torch.kernels import pallas_fdct, pipeline
     from tpuenc_torch.kernels.color_convert import to_planes
 
-    config = EncoderConfig(quality=90)
-    q_tables = [quantization_table("default", 90, True),
-                quantization_table("default", 90, False)]
     huffman = [list(p) for p in default_tables()]
-    params = params_from_numpy(q_tables, *tables_to_arrays(huffman), dev)
+
+    def encode_params(quality):
+        q_tables = [quantization_table("default", quality, True),
+                    quantization_table("default", quality, False)]
+        return params_from_numpy(q_tables, *de.tables_to_arrays(huffman), dev)
+
+    config = EncoderConfig(quality=90)
+    params = encode_params(90)
+    tables = nbytes(params.dc, params.ac)
     px = torch.from_numpy(make_rgb(FLAGSHIP_W, FLAGSHIP_H)).to(dev)
     layout = pipeline.scan_layout(FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB, config)
-    ((_, spec, _),) = build_scan_plan(layout, layout["components"], config)
+    ((_, spec, _),) = de.build_scan_plan(layout, layout["components"], config)
 
     results = {}
 
-    def check(key, kernel, plain, reps=10):
+    def check(key, kernel, plain, read_bytes, reps=10):
         got = kernel()
         torch.cuda.synchronize()
         want = plain()
@@ -146,10 +217,18 @@ def phase_kernels(dev):
             raise AssertionError(f"{key}: kernel differs from plain, max |err| {err}")
         ms = cuda_ms(kernel, reps)
         plain_ms = cuda_ms(plain, reps)
-        print(f"  {key:28s} max|err| {err}  kernel {ms:9.4f} ms  "
-              f"plain {plain_ms:9.4f} ms")
-        results[key] = (err, ms, plain_ms)
+        bound = bound_ms(read_bytes, got)
+        print(f"  {key:44s} max|err| {err}  kernel {ms:9.4f} ms  "
+              f"plain {plain_ms:9.4f} ms  bound {bound:8.5f} ms "
+              f"({bound / ms:.1%} of it)")
+        results[key] = (err, ms, plain_ms, bound)
         return got
+
+    def same_as_split(key, got, split):
+        err = max_abs_err(got, split)
+        if err != 0:
+            raise AssertionError(f"{key}: K8 differs from K1 -> K2, max |err| {err}")
+        print(f"  {key}: equal to K1 -> DC differences -> K2")
 
     # K1 on the luma plane's (64, 56,250) blocks, as fn_cm launches it.
     y = to_planes(px, ColorType.RGB)[0]
@@ -157,7 +236,8 @@ def phase_kernels(dev):
     r, c = params.reciprocals[0], params.corrections[0]
     check("K1 fdct_quantize",
           lambda: pallas_fdct.fdct_quantize(x_cm, r, c),
-          lambda: pallas_fdct.fdct_quantize_ref(x_cm, r, c))
+          lambda: pallas_fdct.fdct_quantize_ref(x_cm, r, c),
+          nbytes(x_cm, r, c))
 
     (stream,) = pipeline.fn_cm(px, FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB,
                                config, params.reciprocals, params.corrections)
@@ -173,7 +253,61 @@ def phase_kernels(dev):
                                    Bp, block_budget),
             lambda: pk.pack_blocks_ref(stream, dcdiff, params.dc, params.ac,
                                        spec, Bp, block_budget),
+            nbytes(stream, dcdiff) + tables,
         )
+
+    # K8 on the flagship's interleaved samples, at the same budgets.
+    samples = pipeline.fn_cm_samples(px, FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB,
+                                     config)
+    qtabs = de.qtab_pattern(layout)
+    quant = nbytes(params.reciprocals, params.corrections)
+    for block_budget in (16, 48):
+        key = f"K8 fused_sample_pack budget {block_budget}"
+        got = check(
+            key,
+            lambda: pk.fused_sample_pack(samples, spec, qtabs,
+                                         params.reciprocals, params.corrections,
+                                         params.dc, params.ac, Bp, block_budget),
+            lambda: pk.fused_sample_pack_ref(samples, spec, qtabs,
+                                             params.reciprocals,
+                                             params.corrections, params.dc,
+                                             params.ac, Bp, block_budget),
+            nbytes(samples) + quant + tables,
+        )
+        same_as_split(key, got, strings[block_budget])
+
+    # K8 on the 4K 4:2:0 image with restart interval 64: 384-block segments
+    # whose starts fall inside thread blocks and on their edges.
+    uconfig = EncoderConfig(quality=80, sampling_factor=SamplingFactor.F_2_2,
+                            restart_interval=64)
+    uparams = encode_params(80)
+    upx = torch.from_numpy(make_rgb(UHD_W, UHD_H)).to(dev)
+    ulayout = pipeline.scan_layout(UHD_W, UHD_H, ColorType.RGB, uconfig)
+    ((_, uspec, _),) = de.build_scan_plan(ulayout, ulayout["components"],
+                                          uconfig)
+    uqtabs = de.qtab_pattern(ulayout)
+    usamples = pipeline.fn_cm_samples(upx, UHD_W, UHD_H, ColorType.RGB, uconfig)
+    (ustream,) = pipeline.fn_cm(upx, UHD_W, UHD_H, ColorType.RGB, uconfig,
+                                uparams.reciprocals, uparams.corrections)
+    uB = usamples.shape[1]
+    uBp = -(-uB // 512) * 512
+    print(f"  4K 4:2:0 stream: {uB} blocks, padded to {uBp}, pattern "
+          f"{len(uqtabs)}, segments of {uspec.seg_blocks} blocks")
+    key = "K8 fused_sample_pack 4K 4:2:0 restart 64 budget 16"
+    got = check(
+        key,
+        lambda: pk.fused_sample_pack(usamples, uspec, uqtabs,
+                                     uparams.reciprocals, uparams.corrections,
+                                     uparams.dc, uparams.ac, uBp, 16),
+        lambda: pk.fused_sample_pack_ref(usamples, uspec, uqtabs,
+                                         uparams.reciprocals,
+                                         uparams.corrections, uparams.dc,
+                                         uparams.ac, uBp, 16),
+        nbytes(usamples) + quant + tables,
+    )
+    same_as_split(key, got, pk.scan_pack_blocks(ustream, uspec, uparams.dc,
+                                                uparams.ac, 16))
+
     # Rungs 5 and 16 both pack their blocks at block budget max(rung, 16).
     words, lens, _ = strings[16]
     n_sub = 128
@@ -184,6 +318,7 @@ def phase_kernels(dev):
             f"K3 merge_chunks rung {rung}",
             lambda: pk.merge_chunks(words, lens, chunk, n_sub * n2, caps, caps[-1]),
             lambda: pk.merge_rows_ref(words, lens, chunk, n_sub * n2, caps, caps[-1]),
+            string_bytes(lens) + nbytes(lens),
         )
         if caps_f is None:
             raise AssertionError(f"rung {rung}: the flagship has no P3 fold")
@@ -193,12 +328,14 @@ def phase_kernels(dev):
             f"K4 fold_rows rung {rung}",
             lambda: pk.fold_rows(rows, row_bits, n2, n_sub, caps_f, caps_f[-1]),
             lambda: pk.merge_rows_ref(rows, row_bits, n2, n_sub, caps_f, caps_f[-1]),
+            string_bytes(row_bits) + nbytes(row_bits),
         )
         pos = torch.cumsum(fbits.to(torch.int64), 0) - fbits
         capW = -(-(n_sub * caps_f[-1] + caps_f[-1] + 256) // 128) * 128
         check(f"K5 concat_rows rung {rung}",
               lambda: pk.concat_rows(frows, pos, fbits, capW),
-              lambda: pk.concat_rows_ref(frows, pos, fbits, capW))
+              lambda: pk.concat_rows_ref(frows, pos, fbits, capW),
+              string_bytes(fbits) + nbytes(pos, fbits))
 
     # K6, K7, K9 on the progressive flagship's luma stream.
     pconfig = progressive_encoder(dev)._config()
@@ -215,13 +352,14 @@ def phase_kernels(dev):
             lambda: pk.pack_acbands(luma, bands, params.ac, 0, Bp, block_budget),
             lambda: pk.pack_acbands_ref(luma, bands, params.ac, 0, Bp,
                                         block_budget),
+            nbytes(luma, params.ac[0]),
         )
         print(f"  K6 budget {block_budget}: cap_f {got[0].shape[2]}, "
               f"overflow {int(got[2].item())}")
     check("K7 hist_count", lambda: ph.hist_count(luma, bands),
-          lambda: ph.hist_count_ref(luma, bands))
+          lambda: ph.hist_count_ref(luma, bands), nbytes(luma))
     check("K9 hist_sym", lambda: ph.hist_sym(luma, 1, 64, Bp),
-          lambda: ph.hist_sym_ref(luma, 1, 64, Bp))
+          lambda: ph.hist_sym_ref(luma, 1, 64, Bp), nbytes(luma))
     return results
 
 
@@ -240,12 +378,13 @@ def phase_fixtures(dev):
     print(f"fixtures: all {len(cases)} fixtures byte-identical on {dev}")
 
 
-def stage_times(dev, rgb, budget):
-    """Device ms of each stage of one flagship encode (CUDA events, median
-    of 10), and the host finish in ms (host clock)."""
+def stage_times(dev, rgb, budget, fused=False):
+    """Device ms of each stage of one interleaved flagship encode, split
+    (K1 x3, K2) or ``fused`` (K8) (CUDA events, median of 10), and the
+    host finish in ms (host clock)."""
     from tpuenc_torch import Encoder
     from tpuenc_torch.core.tables import default_tables, quantization_table
-    from tpuenc_torch.core.types import ColorType, EncoderConfig
+    from tpuenc_torch.core.types import ColorType
     from tpuenc_torch.entropy import device_encode as de
     from tpuenc_torch.entropy import pallas_pack as pk
     from tpuenc_torch.kernels import pipeline
@@ -259,22 +398,39 @@ def stage_times(dev, rgb, budget):
     ((_, spec, _),) = de.build_scan_plan(layout, layout["components"], config)
     host = torch.from_numpy(rgb)
     px = host.to(dev)
+    shape = (px, FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB, config)
     st = {}
     st["h2d pixels"] = cuda_ms(lambda: host.to(dev))
-    st["coefficients (color, pad, blockify, K1 x3, MCU order)"] = cuda_ms(
-        lambda: pipeline.fn_cm(px, FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB,
-                               config, params.reciprocals, params.corrections))
-    (stream,) = pipeline.fn_cm(px, FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB,
-                               config, params.reciprocals, params.corrections)
-    st["P1: DC diffs + K2"] = cuda_ms(
-        lambda: pk.scan_pack_blocks(stream, spec, params.dc, params.ac, budget))
-    words, lens, _ = pk.scan_pack_blocks(stream, spec, params.dc, params.ac, budget)
+    if fused:
+        qtabs = de.qtab_pattern(layout)
+        st["samples (color, pad, blockify, MCU order)"] = cuda_ms(
+            lambda: pipeline.fn_cm_samples(*shape))
+        samples = pipeline.fn_cm_samples(*shape)
+        st["P1: K8"] = cuda_ms(lambda: pk.fused_sample_pack_blocks(
+            samples, spec, qtabs, params, budget))
+        words, lens, _ = pk.fused_sample_pack_blocks(samples, spec, qtabs,
+                                                     params, budget)
+
+        def pack():
+            return de._pack_fused(samples, spec, qtabs, params, budget)
+    else:
+        coeffs = (*shape, params.reciprocals, params.corrections)
+        st["coefficients (color, pad, blockify, K1 x3, MCU order)"] = cuda_ms(
+            lambda: pipeline.fn_cm(*coeffs))
+        (stream,) = pipeline.fn_cm(*coeffs)
+        st["P1: DC diffs + K2"] = cuda_ms(
+            lambda: pk.scan_pack_blocks(stream, spec, params.dc, params.ac,
+                                        budget))
+        words, lens, _ = pk.scan_pack_blocks(stream, spec, params.dc,
+                                             params.ac, budget)
+        plan = [(0, spec, None)]
+
+        def pack():
+            return de._pack_scans_v2((stream,), plan, params, budget)
     st["P2-P4: K3 + K4 + K5"] = cuda_ms(
         lambda: pk.merge_pack_stream(words, lens, budget))
-    plan = [(0, spec, None)]
-    st["pack + meta (P1-P4, seg bits)"] = cuda_ms(
-        lambda: de._pack_scans_v2((stream,), plan, params, budget))
-    buf, meta = de._pack_scans_v2((stream,), plan, params, budget)
+    st["pack + meta (P1-P4, seg bits)"] = cuda_ms(pack)
+    buf, meta = pack()
     meta_np = meta.cpu().numpy()
     times = []
     for _ in range(5):
@@ -294,13 +450,14 @@ def counted_kernels():
 
     return [pallas_fdct.fdct_quantize, pk.pack_blocks, pk.merge_chunks,
             pk.fold_rows, pk.concat_rows, pk.pack_acbands, ph.hist_count,
-            ph.hist_sym]
+            pk.fused_sample_pack, ph.hist_sym]
 
 
-def drive(enc, rgb, required, absent=()):
+def drive(enc, rgb, required, absent=(), path="device-v2"):
     """One encode of ``rgb`` with every launch count set to 0 just before
-    it; returns (bytes, {wrapper name: launches}) and checks that each
-    ``required`` wrapper launched and each ``absent`` one did not."""
+    it; returns (bytes, {wrapper name: launches}) and checks that it ran
+    on ``path``, that each ``required`` wrapper launched and that each
+    ``absent`` one did not."""
     from tpuenc_torch import ColorType
 
     counted = counted_kernels()
@@ -311,8 +468,8 @@ def drive(enc, rgb, required, absent=()):
     launches = {fn.__name__: fn.launches for fn in counted}
     print(f"  {len(out)} bytes, path {enc.last_encode_path}, budget rung "
           f"{enc.last_budget}, launches {launches}")
-    if enc.last_encode_path != "device-v2":
-        raise AssertionError(f"encode ran on {enc.last_encode_path}")
+    if enc.last_encode_path != path:
+        raise AssertionError(f"encode ran on {enc.last_encode_path}, want {path}")
     idle = [k for k in required if launches[k] == 0]
     if idle:
         raise AssertionError(f"kernels never launched on the path: {idle}")
@@ -324,7 +481,7 @@ def drive(enc, rgb, required, absent=()):
     return out, launches
 
 
-def e2e(enc, rgb):
+def e2e(enc, rgb, label=""):
     from tpuenc_torch import ColorType
 
     times = []
@@ -334,7 +491,7 @@ def e2e(enc, rgb):
         times.append(time.perf_counter() - t0)
     med = statistics.median(times)
     mp = FLAGSHIP_W * FLAGSHIP_H / 1e6
-    print(f"  e2e (host pixels -> bytes, warm, median of 7): "
+    print(f"  e2e{label} (host pixels -> bytes, warm, median of 7): "
           f"{med * 1e3:.3f} ms = {mp / med:.1f} MP/s "
           f"(runs ms: {' '.join(f'{t * 1e3:.3f}' for t in times)})")
 
@@ -346,7 +503,8 @@ def phase_flagship(dev):
     enc = Encoder(90, device=dev)
     out, launches = drive(enc, rgb, ["fdct_quantize", "pack_blocks",
                                      "merge_chunks", "fold_rows",
-                                     "concat_rows"])
+                                     "concat_rows"],
+                          absent=["fused_sample_pack"])
     t0 = time.perf_counter()
     want = Encoder(90, device="cpu").encode(rgb, FLAGSHIP_W, FLAGSHIP_H,
                                             ColorType.RGB)
@@ -357,6 +515,32 @@ def phase_flagship(dev):
     print("  cuda bytes == cpu bytes")
     e2e(enc, rgb)
     stage_times(dev, rgb, enc.last_budget)
+    return launches, out, enc.last_budget
+
+
+def phase_fused(dev, want, rung):
+    """The interleaved flagship through K8: the budget ladder learns its
+    rung afresh, and the bytes and the rung must be phase 5's."""
+    from tpuenc_torch import Encoder
+    from tpuenc_torch.entropy import device_encode as de
+
+    rgb = make_rgb(FLAGSHIP_W, FLAGSHIP_H)
+    de._budget_memo.clear()
+    enc = Encoder(90, device=dev, fused_p1=True)
+    out, launches = drive(enc, rgb, ["fused_sample_pack", "merge_chunks",
+                                     "fold_rows", "concat_rows"],
+                          absent=["fdct_quantize", "pack_blocks"],
+                          path="device-v2-fused")
+    if out != want:
+        raise AssertionError("fused flagship bytes differ from phase 5's")
+    if enc.last_budget != rung:
+        raise AssertionError(f"fused rung {enc.last_budget}, phase 5's {rung}")
+    print(f"  bytes == phase 5's (== the CPU path's), rung {rung} == phase 5's")
+    split = Encoder(90, device=dev)
+    for e, label in ((split, " split"), (enc, " fused"), (enc, " fused"),
+                     (split, " split")):
+        e2e(e, rgb, label)
+    stage_times(dev, rgb, enc.last_budget, fused=True)
     return launches
 
 
@@ -460,7 +644,7 @@ def phase_progressive(dev):
         enc, rgb,
         ["fdct_quantize", "merge_chunks", "fold_rows", "concat_rows",
          "pack_acbands", "hist_count"],
-        absent=["pack_blocks", "hist_sym"])
+        absent=["pack_blocks", "hist_sym", "fused_sample_pack"])
     if b"\xff\xc2" not in out:
         raise AssertionError("no progressive frame header (SOF2)")
     res = subprocess.run([sys.executable, "-c", CPU_PROGRESSIVE], cwd=HERE,
@@ -493,41 +677,57 @@ KERNELS = [
      "tpuenc_torch/csrc/pack_acbands.cu", "tpuenc/entropy/pallas_pack.py:629"),
     ("K7 hist_count", "hist_count", "K7 hist_count",
      "tpuenc_torch/csrc/hist_count.cu", "tpuenc/entropy/pallas_hist.py:134"),
+    ("K8 fused_sample_pack", "fused_sample_pack",
+     "K8 fused_sample_pack budget 16", "tpuenc_torch/csrc/fused_sample_pack.cu",
+     "tpuenc/entropy/pallas_pack.py:1703"),
     ("K9 hist_sym", "hist_sym", "K9 hist_sym",
      "tpuenc_torch/csrc/hist_sym.cu", "tpuenc/entropy/pallas_hist.py:44"),
 ]
 
 
 def main():
+    dev = torch.device("cuda:0")
+    flagship = {}
+
+    def phase_5():
+        launches, flagship["bytes"], flagship["rung"] = phase_flagship(dev)
+        return launches
+
     phases = [("1. environment", phase_env), ("2. build", phase_build),
               ("3. kernels vs plain versions (flagship shapes, tolerance 0)",
-               phase_kernels),
-              ("4. fixtures", phase_fixtures),
-              ("5. flagship, interleaved", phase_flagship),
+               lambda: phase_kernels(dev)),
+              ("4. fixtures", lambda: phase_fixtures(dev)),
+              ("5. flagship, interleaved", phase_5),
               ("6. flagship, progressive with optimized tables",
-               phase_progressive)]
-    dev = torch.device("cuda:0")
+               lambda: phase_progressive(dev)),
+              ("7. flagship, interleaved, fused P1 (K8)",
+               lambda: phase_fused(dev, flagship["bytes"], flagship["rung"]))]
     out = {}
     for title, fn in phases:
         print(f"== {title}")
         t0 = time.perf_counter()
-        out[title] = fn(dev) if fn not in (phase_env, phase_build) else fn()
-        if fn is phase_kernels:
+        out[title] = fn()
+        if title.startswith("3."):
             tests_only = {k.__name__: k.launches for k in counted_kernels()}
         print(f"   ({time.perf_counter() - t0:.2f} s)")
     results = out[phases[2][0]]
     paths = {"interleaved": out[phases[4][0]],
-             "progressive_optimized": out[phases[5][0]]}
+             "progressive_optimized": out[phases[5][0]],
+             "interleaved_fused": out[phases[6][0]]}
 
     kernels = []
     for name, counter, key, source, replaces in KERNELS:
-        _, ms, plain_ms = results[key]
+        _, ms, plain_ms, bound = results[key]
         errs = [v[0] for k, v in results.items() if k.startswith(name)]
         by_path = {p: n[counter] for p, n in paths.items() if n[counter]}
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
             "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            # Integer work, no matrix product: the bytes bound it.
+            "bound_ms": bound, "bound_by": "bytes",
+            # No single PyTorch call computes any of these functions.
+            "library_ms": None,
             "path": "+".join(by_path), "launches_by_path": by_path,
         }
         if not by_path:  # K9: no encode path runs it (tpuenc's tests only)

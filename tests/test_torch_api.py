@@ -128,11 +128,13 @@ def test_pack_rows_count_every_scan():
 
 
 def test_import_leaves_out_jax():
-    """Importing the port (and encoding) loads neither jax nor tpuenc."""
+    """Importing the port (and encoding, split and fused) loads neither jax
+    nor tpuenc."""
     code = (
         "import sys, numpy as np, tpuenc_torch as t\n"
-        "t.Encoder(90, device='cpu').encode(np.zeros((8, 8, 3), np.uint8),"
-        " 8, 8, t.ColorType.RGB)\n"
+        "for f in (False, True):\n"
+        "    t.Encoder(90, device='cpu', fused_p1=f).encode("
+        "np.zeros((8, 8, 3), np.uint8), 8, 8, t.ColorType.RGB)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'tpuenc')]\n"
         "assert not bad, bad\n"
     )

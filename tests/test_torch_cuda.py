@@ -232,6 +232,111 @@ def test_k9_matches_plain(dev, band):
     assert torch.equal(hist, th.ac_histograms_multiband(q, [band])[0])
 
 
+# K8: (block component pattern, quantizer per component, table ids per
+# component) for MCUs of 1, 3, 6, 7 and 10 blocks.
+FUSED = {
+    "luma": ((0,), (0,), (0,)),
+    "rgb444": ((0, 1, 2), (0, 1, 1), (0, 1, 1)),
+    "rgb420": ((0, 0, 0, 0, 1, 2), (0, 1, 1), (0, 1, 1)),
+    "cmyk22": ((0, 0, 0, 0, 1, 2, 3), (0, 1, 1, 0), (0, 1, 1, 0)),
+    "ycck420": ((0, 0, 0, 0, 1, 2, 3, 3, 3, 3), (0, 1, 1, 0), (0, 1, 1, 0)),
+}
+
+
+def _fused_case(name, restart_mcus):
+    pattern, qt, tabs = FUSED[name]
+    spec = _spec(pattern, tabs, restart_mcus * len(pattern))
+    return spec, tuple(qt[c] for c in pattern)
+
+
+def _samples(B, seed, amp=128):
+    """Level-shifted int16 (64, B) samples: smooth blocks, noise blocks,
+    flat extremes."""
+    rng = np.random.default_rng(seed)
+    ramp = (np.arange(64) % 8 * 9 - 32)[:, None]
+    x = ramp + rng.integers(-12, 12, (64, B))
+    x[:, 5::9] = rng.integers(-amp, amp, (64, x[:, 5::9].shape[1]))
+    x[:, 1::17] = -128
+    x[:, 2::17] = 127
+    return np.clip(x, -128, 127).astype(np.int16)
+
+
+def _split_p1(x, spec, qtabs, p, Bp, budget):
+    """K1 with each block's table (one launch per table, columns picked
+    per block), the DC differences, then K2: the path K8 replaces."""
+    lane_q = torch.tensor(qtabs, device=x.device)[
+        torch.arange(x.shape[1], device=x.device) % len(qtabs)]
+    x32 = x.to(torch.int32)
+    q = torch.where(lane_q == 1,
+                    tfdct.fdct_quantize(x32, p.reciprocals[1], p.corrections[1]),
+                    tfdct.fdct_quantize(x32, p.reciprocals[0], p.corrections[0]))
+    return tpack.pack_blocks(q, tpack.dc_diffs_from_dc(q[0], spec), p.dc, p.ac,
+                             spec, Bp, budget)
+
+
+@pytest.mark.parametrize("name", sorted(FUSED))
+@pytest.mark.parametrize("restart_mcus", [0, 2])
+@pytest.mark.parametrize("budget", [16, 48, 224])
+def test_k8_matches_plain_and_split(dev, name, restart_mcus, budget):
+    """K8 == its plain version == K1 -> DC differences -> K2, words,
+    lengths and flag, for B = 1003 (no multiple of 128 or of the MCU), with
+    restart segments that start inside thread blocks and on their edges."""
+    spec, qtabs = _fused_case(name, restart_mcus)
+    p = _params(dev)
+    x = torch.from_numpy(_samples(1003, len(qtabs) + budget)).to(dev)
+    n = tpack.fused_sample_pack.launches
+    got = tpack.fused_sample_pack(x, spec, qtabs, p.reciprocals, p.corrections,
+                                  p.dc, p.ac, 1024, budget)
+    torch.cuda.synchronize()
+    assert tpack.fused_sample_pack.launches == n + 1
+    want = tpack.fused_sample_pack_ref(x, spec, qtabs, p.reciprocals,
+                                       p.corrections, p.dc, p.ac, 1024, budget)
+    split = _split_p1(x, spec, qtabs, p, 1024, budget)
+    for g, w, s in zip(got, want, split):
+        assert torch.equal(g, w) and torch.equal(g, s)
+    assert not got[1][1003:].any()
+
+
+@pytest.mark.parametrize("budget", [16, 48])
+def test_k8_overflow_flag(dev, budget):
+    """Noise through the flat q100 quantizer overflows the rung-16 block
+    caps; the flag, the lengths and the kept words match K1 + K2."""
+    spec, qtabs = _fused_case("rgb444", 0)
+    q = [quantization_table("flat", 100, True),
+         quantization_table("flat", 100, False)]
+    p = params_from_numpy(q, *tables_to_arrays(
+        [list(t) for t in default_tables()]), dev)
+    x = torch.from_numpy(_samples(600, 3, amp=128)).to(dev)
+    x[:, 100:140] = torch.from_numpy(np.random.default_rng(4).integers(
+        -128, 128, (64, 40)).astype(np.int16)).to(dev)
+    got = tpack.fused_sample_pack(x, spec, qtabs, p.reciprocals, p.corrections,
+                                  p.dc, p.ac, 640, budget)
+    split = _split_p1(x, spec, qtabs, p, 640, budget)
+    want = tpack.fused_sample_pack_ref(x, spec, qtabs, p.reciprocals,
+                                       p.corrections, p.dc, p.ac, 640, budget)
+    assert bool(got[2].item()) == (budget == 16)
+    for g, w, s in zip(got, want, split):
+        assert torch.equal(g, w) and torch.equal(g, s)
+
+
+def test_k8_rejects_bad_input(dev):
+    spec, qtabs = _fused_case("rgb444", 0)
+    p = _params(dev)
+    x = torch.zeros((64, 8), dtype=torch.int16, device=dev)
+    args = (p.reciprocals, p.corrections, p.dc, p.ac, 128, 16)
+    with pytest.raises(ValueError):  # int32 samples
+        tpack.fused_sample_pack(x.to(torch.int32), spec, qtabs, *args)
+    with pytest.raises(ValueError):  # one quantizer, not (luma, chroma)
+        tpack.fused_sample_pack(x, spec, qtabs, p.reciprocals[0],
+                                p.corrections[0], p.dc, p.ac, 128, 16)
+    with pytest.raises(ValueError):  # pattern of another MCU
+        tpack.fused_sample_pack(x, spec, (0, 1), *args)
+    with pytest.raises(ValueError):  # a scan without DC items
+        tpack.fused_sample_pack(x, SPECS[4], (0,), *args)
+    with pytest.raises(ValueError):  # fewer output rows than blocks
+        tpack.fused_sample_pack(x, spec, qtabs, *args[:4], 4, 16)
+
+
 def test_wrappers_reject_bad_input(dev):
     p = _params(dev)
     with pytest.raises(ValueError):
@@ -252,6 +357,20 @@ def test_fixtures_on_cuda(dev, name):
     build, ct, ch, seed, w, h = build_cases(dev)[name]
     want = open(os.path.join(HERE, "fixtures", f"{name}.jpg"), "rb").read()
     assert build().encode(img(ch, seed, w, h), w, h, ct) == want
+
+
+@pytest.mark.parametrize("name", sorted(build_cases("cpu")))
+def test_fused_fixtures_on_cuda(dev, name):
+    """With fused_p1, the 17 interleaved fixtures go through K8 and the 9
+    others through the split path; every file is unchanged."""
+    build, ct, ch, seed, w, h = build_cases(dev, fused_p1=True)[name]
+    want = open(os.path.join(HERE, "fixtures", f"{name}.jpg"), "rb").read()
+    enc = build()
+    n = tpack.fused_sample_pack.launches
+    assert enc.encode(img(ch, seed, w, h), w, h, ct) == want
+    fused = enc._config().mode() == "interleaved"
+    assert enc.last_encode_path == ("device-v2-fused" if fused else "device-v2")
+    assert (tpack.fused_sample_pack.launches > n) == fused
 
 
 @pytest.mark.parametrize("w,h,ct,ch,quality,sf,restart,scans,opt", [

@@ -6,8 +6,9 @@ sequential and progressive scans with default or two-pass optimized
 Huffman tables.  On a CUDA device the coefficient stage (fDCT + zigzag +
 quantize, K1), the two-pass symbol counts (K7) and the entropy packer
 (P1-P4: K2, K6, K3-K5) run as hand-written CUDA kernels (``csrc/``, built
-with nvcc at first use); on the CPU the same path runs their plain
-PyTorch versions.  The host builds the optimized tables and finishes each
+with nvcc at first use), and ``Encoder(..., fused_p1=True)`` runs K8 in
+place of K1 and K2 on the interleaved mode; on the CPU the same path runs
+their plain PyTorch versions.  The host builds the optimized tables and finishes each
 scan with the native library (``native/entropy.cpp``).
 
 This package imports ``torch`` and never ``jax`` or ``tpuenc``.

@@ -129,12 +129,20 @@ class Encoder:
     1..100; below 90 the default sampling factor is 2x2 (4:2:0), otherwise
     1x1.  ``device`` is any PyTorch device spec ("cuda", "cuda:1", "cpu");
     the encoder never picks one itself.
+
+    ``fused_p1=True`` routes the interleaved mode through K8, which
+    transforms, quantizes and packs each block in one pass, in place of K1
+    then K2 (``last_encode_path`` "device-v2-fused"); the bytes are the
+    same.  It is routing by mode: sequential, progressive and
+    optimized-table encodes (optimized tables make the scans sequential)
+    take the split path as ever ("device-v2").
     """
 
-    def __init__(self, quality: int, *, device, _path: Optional[str] = None,
-                 _writer=None):
+    def __init__(self, quality: int, *, device, fused_p1: bool = False,
+                 _path: Optional[str] = None, _writer=None):
         self.quality = int(quality)
         self.device = torch.device(device)
+        self.fused_p1 = bool(fused_p1)
         self._sampling_factor = (
             SamplingFactor.F_2_2 if self.quality < 90 else SamplingFactor.F_1_1
         )
@@ -151,21 +159,23 @@ class Encoder:
         self._quant: dict = {}
         self._default_huffman = None
         # Which path produced the last encode() output ("device-v2", the
-        # counterpart of tpuenc's v2 device packer), and the budget rung
-        # (words per block) its packer used.
+        # counterpart of tpuenc's v2 device packer, or "device-v2-fused"
+        # with K8), and the budget rung (words per block) its packer used.
         self.last_encode_path: Optional[str] = None
         self.last_budget: Optional[int] = None
 
     @classmethod
-    def new_file(cls, path, quality: int, *, device) -> "Encoder":
+    def new_file(cls, path, quality: int, *, device,
+                 fused_p1: bool = False) -> "Encoder":
         """Encoder writing to a file (reference encoder.rs:1203-1220)."""
-        return cls(quality, device=device, _path=str(path))
+        return cls(quality, device=device, fused_p1=fused_p1, _path=str(path))
 
     @classmethod
-    def new_writer(cls, writer, quality: int, *, device) -> "Encoder":
+    def new_writer(cls, writer, quality: int, *, device,
+                   fused_p1: bool = False) -> "Encoder":
         """Encoder writing into any object with a ``write(bytes)`` method
         (reference writer.rs:76-106)."""
-        return cls(quality, device=device, _writer=writer)
+        return cls(quality, device=device, fused_p1=fused_p1, _writer=writer)
 
     # ------------------------------------------------------------------
     # Setters (reference encoder.rs:277-435)
@@ -376,6 +386,9 @@ class Encoder:
         if not pixels.flags.writeable:
             pixels = pixels.copy()
         px = torch.from_numpy(np.ascontiguousarray(pixels)).to(self.device)
+        # Routing by mode: only the interleaved scan has a fused route
+        # (optimized tables make the scans sequential).
+        fused = self.fused_p1 and config.mode() == "interleaved"
         if config.optimize_huffman_table:
             # Two passes (tpuenc/api.py:776-825): coefficients and
             # histograms on the device, one small copy of the counts, the
@@ -398,9 +411,9 @@ class Encoder:
                 self._default_huffman = de.huffman_params(huffman, self.device)
             params = de.EncodeParams(recip, corr, *self._default_huffman)
             scans, budget = de.device_encode_scans(
-                px, width, height, color_type, config, params
+                px, width, height, color_type, config, params, fused_p1=fused
             )
-        self.last_encode_path = "device-v2"
+        self.last_encode_path = "device-v2-fused" if fused else "device-v2"
         self.last_budget = budget
 
         out = self._leading_segments(config, jct)

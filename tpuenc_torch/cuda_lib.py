@@ -43,6 +43,10 @@ _SIGNATURES = {
     # emit_dc, caps, words, lens, overflow, stream
     "tpuenc_pack_blocks": [_P, _LL, _LL, _P, _P, _P, _IP, _I, _I, _I, _I,
                            _IP, _P, _P, _P, _P],
+    # x, n_blocks, Bp, recip, corr, dc_tab, ac_tab, pattern, pat, ss, se,
+    # seg_blocks, caps, words, lens, overflow, stream
+    "tpuenc_fused_sample_pack": [_P, _LL, _LL, _P, _P, _P, _P, _IP, _I, _I,
+                                 _I, _LL, _IP, _P, _P, _P, _P],
     # X, L, n_rows, C_in, run, n_runs, caps, n_levels, out, cap_out,
     # out_len, overflow, stream
     "tpuenc_merge_rows": [_P, _P, _LL, _I, _I, _LL, _IP, _I, _P, _I, _P, _P,

@@ -5,7 +5,10 @@ the coefficient streams (``kernels.pipeline.fn_cm``), P1 of every scan of
 the plan (``entropy.pallas_pack``: the DC path for DC-only scans, K6 for
 groups of AC band scans of one component, K2 for the rest), one shared
 P2-P4 merge of all scans' block strings in plan order, and a small
-``meta`` vector.  The host reads ``meta`` (overflow flag, scan bits,
+``meta`` vector.  On request (``fused_p1``), an interleaved scan instead
+goes from its samples (``kernels.pipeline.fn_cm_samples``) through K8,
+which transforms, quantizes and packs each block in one pass, to the same
+merge.  The host reads ``meta`` (overflow flag, scan bits,
 per-segment bits), copies the first ``total_words`` words of the stream,
 and finishes each scan's restart segments from its bit offset with the
 native realigner (byte-align, 1-pad, 0xFF-stuff, RST markers).
@@ -30,6 +33,7 @@ from .device_pack import ScanSpec
 from .huffopt import progressive_bands
 from .pallas_pack import (
     dc_only_pack_blocks,
+    fused_sample_pack_blocks,
     merge_pack_stream,
     scan_pack_blocks,
     scan_pack_blocks_acbands,
@@ -216,6 +220,17 @@ def _band_groups(scan_plan):
     return batches
 
 
+def _segment_bits(lens, B: int, spec: ScanSpec):
+    """A scan's total bits (1,) and its unpadded restart segments' bits
+    from its P1 lengths (padding blocks carry 0 bits), int64."""
+    seg = spec.seg_blocks if spec.seg_blocks > 0 else B
+    n_seg = -(-B // seg)
+    lens_real = torch.nn.functional.pad(lens[:B].to(torch.int64),
+                                        (0, n_seg * seg - B))
+    seg_bits = lens_real.view(n_seg, seg).sum(1)
+    return seg_bits.sum().view(1), seg_bits
+
+
 def pack_scans_p1(comp_streams, scan_plan, params: EncodeParams,
                   budget: int):
     """P1 of every scan of the plan: K6 for the grouped AC band scans, the
@@ -249,12 +264,9 @@ def pack_scans_p1(comp_streams, scan_plan, params: EncodeParams,
                 words, lens, ovf = scan_pack_blocks(blocks, spec, params.dc,
                                                     params.ac, budget)
             overflow = overflow | ovf
-        seg = spec.seg_blocks if spec.seg_blocks > 0 else B
-        n_seg = -(-B // seg)
-        lens_real = torch.nn.functional.pad(lens[:B].to(torch.int64),
-                                            (0, n_seg * seg - B))
-        seg_bits.append(lens_real.view(n_seg, seg).sum(1))
-        scan_bits.append(seg_bits[-1].sum().view(1))  # padding blocks: 0 bits
+        bits, segs = _segment_bits(lens, B, spec)
+        scan_bits.append(bits)
+        seg_bits.append(segs)
         strings.append((words, lens))
 
     if len(strings) == 1:
@@ -284,6 +296,24 @@ def _pack_scans_v2(comp_streams, scan_plan, params: EncodeParams,
     meta = torch.cat([(overflow | ovf2).to(torch.int64), *scan_bits,
                       *seg_bits])
     return out, meta
+
+
+def qtab_pattern(layout):
+    """The quantization table of each block of an interleaved MCU."""
+    comps = layout["components"]
+    return tuple(comps[c].quantization_table for c in layout["mcu_block_comps"])
+
+
+def _pack_fused(samples, spec: ScanSpec, qtabs, params: EncodeParams,
+                budget: int):
+    """Pack one interleaved scan from its samples: K8, then the P2-P4
+    merge.  Returns ``(stream_words int32, meta int64)`` in
+    :func:`_pack_scans_v2`'s layout, [overflow, scan bits, seg bits...]."""
+    words, lens, ovf = fused_sample_pack_blocks(samples, spec, qtabs, params,
+                                                budget)
+    out, _, ovf2 = merge_pack_stream(words, lens, budget)
+    bits, segs = _segment_bits(lens, samples.shape[1], spec)
+    return out, torch.cat([(ovf | ovf2).to(torch.int64), bits, segs])
 
 
 def _finish_scans_v2(buf_words, meta_np, n_scans: int,
@@ -322,21 +352,27 @@ def seg_structure(layout, scan_plan):
 def device_encode_scans(pixels, width: int, height: int,
                         color_type: ColorType, config: EncoderConfig,
                         params: EncodeParams, comp_streams=None,
-                        budget_hint: int = 0):
+                        budget_hint: int = 0, fused_p1: bool = False):
     """Encode every scan of ``pixels`` (an (H, W[, C]) uint8 tensor on the
     params' device).  ``comp_streams``: the coefficient streams when they
     are already on the device (the two-pass optimized-table flow), else
     they are computed here.  ``budget_hint`` (words per pack row): without
     a learned rung for this shape and config, the ladder starts at the
     first rung that covers it; a learned rung wins over the hint.
+    ``fused_p1``: pack the one interleaved scan straight from its samples
+    with K8 (:func:`_pack_fused`) in place of K1 and K2; the bytes, the
+    overflow flags and so the rungs are the split path's.  It raises
+    ``ValueError`` for any other plan, and with ``comp_streams``.
     Returns ``(scans, budget)``: the per-scan entropy byte strings
     (stuffed, RST markers in place) in plan order, and the budget rung
     that packed them."""
-    from ..kernels.pipeline import fn_cm, scan_layout
+    from ..kernels.pipeline import fn_cm, fn_cm_samples, scan_layout
 
     layout = scan_layout(width, height, color_type, config)
     scan_plan = build_scan_plan(layout, layout["components"], config)
     segs = seg_structure(layout, scan_plan)
+    if fused_p1 and (not layout["interleaved"] or comp_streams is not None):
+        raise ValueError("fused_p1 packs one interleaved scan from its pixels")
 
     key = (width, height, color_type, config, pixels.device.type)
     budgets = list(BUDGET_LADDER)
@@ -345,11 +381,22 @@ def device_encode_scans(pixels, width: int, height: int,
     elif budget_hint > 0:
         budgets = [b for b in budgets if b >= budget_hint] or [budgets[-1]]
 
-    if comp_streams is None:
-        comp_streams = fn_cm(pixels, width, height, color_type, config,
-                             params.reciprocals, params.corrections)
+    if fused_p1:
+        samples = fn_cm_samples(pixels, width, height, color_type, config)
+        ((_, spec, _),) = scan_plan
+        qtabs = qtab_pattern(layout)
+
+        def pack(budget):
+            return _pack_fused(samples, spec, qtabs, params, budget)
+    else:
+        if comp_streams is None:
+            comp_streams = fn_cm(pixels, width, height, color_type, config,
+                                 params.reciprocals, params.corrections)
+
+        def pack(budget):
+            return _pack_scans_v2(comp_streams, scan_plan, params, budget)
     for budget in budgets:
-        buf, meta = _pack_scans_v2(comp_streams, scan_plan, params, budget)
+        buf, meta = pack(budget)
         meta_np = meta.cpu().numpy()
         if meta_np[0]:  # overflow: next rung
             continue

@@ -1,4 +1,4 @@
-"""Entropy bit packing on the device: P1 (K2, K6), P2 (K3), P3 (K4), P4 (K5).
+"""Entropy bit packing on the device: P1 (K2, K6, K8), P2 (K3), P3 (K4), P4 (K5).
 
 Counterpart of ``tpuenc/entropy/pallas_pack.py``.  The four stages turn a
 coefficient-major (64, B) int16 block stream into one raw bit
@@ -6,7 +6,10 @@ concatenation of the blocks' Huffman codes (no byte alignment: the host
 realigns, pads and stuffs each restart segment):
 
 * P1, :func:`pack_blocks` (K2): one MSB-aligned bit string per block, for
-  an interleaved or sequential scan or one band; :func:`pack_acbands`
+  an interleaved or sequential scan or one band; :func:`fused_sample_pack`
+  (K8): the same strings of an interleaved scan straight from its samples,
+  with the fDCT, quantize and DC differences of K1 in the same pass;
+  :func:`pack_acbands`
   (K6): the strings of up to 7 progressive AC bands of one component in
   one pass; :func:`dc_only_pack_blocks`: the one-word strings of a DC-only
   scan (plain PyTorch, as it is XLA in ``tpuenc``).
@@ -32,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from .. import cuda_lib
+from ..kernels.pallas_fdct import fdct_quantize_ref
 from .device_pack import ScanSpec
 
 MASK32 = 0xFFFFFFFF
@@ -178,6 +182,17 @@ def _check_spec(spec: ScanSpec):
         raise ValueError("table pattern longer than 16 blocks")
 
 
+def _check_tables(spec: ScanSpec, dc_tab, ac_tab, B: int, Bp: int, device):
+    """What K2 and K8 need of the packed tables and the output rows."""
+    n_tabs = ac_tab.shape[0]
+    cuda_lib.check_tensor("dc_tab", dc_tab, torch.int32, (1, 128), device)
+    cuda_lib.check_tensor("ac_tab", ac_tab, torch.int32, (n_tabs, 256), device)
+    if Bp < B:
+        raise ValueError(f"Bp {Bp} < B {B}")
+    if max(spec.dc_tab_pattern + spec.ac_tab_pattern) >= min(n_tabs, 8):
+        raise ValueError("table pattern names a missing table")
+
+
 def _k2_band(spec: ScanSpec):
     """The band K2 codes: the scan's own, or for a DC-only scan the empty
     band [0, 0), which gives no AC item and no EOB."""
@@ -303,15 +318,9 @@ def pack_blocks(q, dcdiff, dc_tab, ac_tab, spec: ScanSpec, Bp: int,
     _check_spec(spec)
     dev = q.device
     B = q.shape[-1]
-    n_tabs = ac_tab.shape[0]
     cuda_lib.check_tensor("q", q, torch.int16, (64, B), dev)
     cuda_lib.check_tensor("dcdiff", dcdiff, torch.int32, (B,), dev)
-    cuda_lib.check_tensor("dc_tab", dc_tab, torch.int32, (1, 128), dev)
-    cuda_lib.check_tensor("ac_tab", ac_tab, torch.int32, (n_tabs, 256), dev)
-    if Bp < B:
-        raise ValueError(f"Bp {Bp} < B {B}")
-    if max(spec.dc_tab_pattern + spec.ac_tab_pattern) >= min(n_tabs, 8):
-        raise ValueError("table pattern names a missing table")
+    _check_tables(spec, dc_tab, ac_tab, B, Bp, dev)
     caps = _p1_caps(budget)
     ss, se = _k2_band(spec)
     words = torch.empty((Bp, caps[-1]), dtype=torch.int32, device=dev)
@@ -416,6 +425,95 @@ def dc_only_pack_blocks(blocks, spec: ScanSpec, dc_packed, tile: int = 512):
     words[:B, 0] = _to_i32(word)
     lens[:B] = blen.to(torch.int32)
     return words, lens, ovf
+
+
+# ---------------------------------------------------------------------------
+# Fused sample -> P1 of an interleaved scan (K8).
+# ---------------------------------------------------------------------------
+
+def _check_fused(spec: ScanSpec, qtab_pattern):
+    _check_spec(spec)
+    if not (spec.emit_dc and spec.emit_ac):
+        raise ValueError("K8 packs a scan with DC and AC items")
+    if len(qtab_pattern) != len(spec.dc_tab_pattern) or \
+            not set(qtab_pattern) <= {0, 1}:
+        raise ValueError(f"quantizer pattern {qtab_pattern} for "
+                         f"{len(spec.dc_tab_pattern)} blocks per MCU")
+
+
+def fused_sample_pack_ref(x, spec: ScanSpec, qtab_pattern, recip, corr,
+                          dc_tab, ac_tab, Bp: int, budget: int):
+    """Plain version of K8: K1's plain version with the quantizer of each
+    block's MCU position (``qtab_pattern[b % pat]``), the DC differences
+    (:func:`dc_diffs_from_dc`) and K2's plain version.
+
+    ``x``: int16 (64, B) MCU-ordered level-shifted samples; ``recip`` /
+    ``corr``: int32 (2, 64) zigzag-ordered (luma, chroma); the tables,
+    ``Bp`` and ``budget`` as :func:`pack_blocks_ref` takes them.  Returns
+    K2's ``(words int32 (Bp, capB), lens int32 (Bp,), overflow int32
+    (1,))``."""
+    _check_fused(spec, qtab_pattern)
+    B = x.shape[1]
+    pattern = torch.tensor(qtab_pattern, dtype=torch.int64, device=x.device)
+    table = pattern[torch.arange(B, device=x.device) % len(qtab_pattern)]
+    q = fdct_quantize_ref(x, recip[table].T, corr[table].T)
+    return pack_blocks_ref(q, dc_diffs_from_dc(q[0], spec), dc_tab, ac_tab,
+                           spec, Bp, budget)
+
+
+def fused_sample_pack(x, spec: ScanSpec, qtab_pattern, recip, corr, dc_tab,
+                      ac_tab, Bp: int, budget: int):
+    """K8 on ``x``'s device: the CUDA kernel for a CUDA tensor, the plain
+    version (:func:`fused_sample_pack_ref`, same contract) for a CPU
+    tensor."""
+    if not cuda_lib.on_cuda(x, "fused_sample_pack"):
+        return fused_sample_pack_ref(x, spec, qtab_pattern, recip, corr,
+                                     dc_tab, ac_tab, Bp, budget)
+    _check_fused(spec, qtab_pattern)
+    dev = x.device
+    B = x.shape[-1]
+    cuda_lib.check_tensor("x", x, torch.int16, (64, B), dev)
+    cuda_lib.check_tensor("recip", recip, torch.int32, (2, 64), dev)
+    cuda_lib.check_tensor("corr", corr, torch.int32, (2, 64), dev)
+    _check_tables(spec, dc_tab, ac_tab, B, Bp, dev)
+    caps = _p1_caps(budget)
+    words = torch.empty((Bp, caps[-1]), dtype=torch.int32, device=dev)
+    lens = torch.empty(Bp, dtype=torch.int32, device=dev)
+    ovf = torch.zeros(1, dtype=torch.int32, device=dev)
+    lib = cuda_lib.library()
+    cuda_lib.check(
+        lib.tpuenc_fused_sample_pack(
+            x.data_ptr(), B, Bp, recip.data_ptr(), corr.data_ptr(),
+            dc_tab.data_ptr(), ac_tab.data_ptr(),
+            cuda_lib.int_array(spec.dc_tab_pattern + spec.ac_tab_pattern
+                               + tuple(qtab_pattern) + spec.dc_prev_delta),
+            len(qtab_pattern), spec.spectral_start, spec.spectral_end,
+            spec.seg_blocks, cuda_lib.int_array(caps), words.data_ptr(),
+            lens.data_ptr(), ovf.data_ptr(), cuda_lib.stream_of(x),
+        ),
+        "tpuenc_fused_sample_pack",
+    )
+    fused_sample_pack.launches += 1
+    return words, lens, ovf
+
+
+fused_sample_pack.launches = 0
+
+
+def fused_sample_pack_blocks(x, spec: ScanSpec, qtab_pattern, params,
+                             budget: int, *, tile: int = 512):
+    """P1 of one interleaved scan from its samples: ``x`` int16 (64, B)
+    (:func:`~tpuenc_torch.kernels.pipeline.fn_cm_samples`), ``params`` the
+    encoder's quantizers and packed tables (``EncodeParams``).  Returns
+    :func:`scan_pack_blocks`' ``(words int32 (Bp, capB), lens int32 (Bp,),
+    overflow int32 (1,))`` for the same budget: Bp = B rounded up to
+    ``tile``, padding blocks of length 0, block caps at ``max(budget,
+    16)``."""
+    B = x.shape[1]
+    Bp = -(-B // tile) * tile
+    return fused_sample_pack(x.contiguous(), spec, tuple(qtab_pattern),
+                             params.reciprocals, params.corrections,
+                             params.dc, params.ac, Bp, max(budget, 16))
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,8 @@ from .quantize import quantize_rows
 def fdct_quantize_ref(x_cm, recip, corr):
     """Plain version of K1: ``x_cm`` int32 (64, B) level-shifted samples
     (row k = sample y*8+x); ``recip``/``corr`` int32 (64,) in zigzag
-    order.  Returns int16 (64, B), row j = zigzag coefficient j."""
+    order, or (64, B) with one table per block (K8's per-lane tables).
+    Returns int16 (64, B), row j = zigzag coefficient j."""
     x = x_cm.to(torch.int32)
     rows = [x[k] for k in range(64)]
     mid = [None] * 64
@@ -35,7 +36,7 @@ def fdct_quantize_ref(x_cm, recip, corr):
         for y in range(8):
             final[y * 8 + i] = group[y]
     zz = torch.stack([final[int(n)] for n in ZIGZAG])
-    return quantize_rows(zz, recip.view(64, 1), corr.view(64, 1))
+    return quantize_rows(zz, recip.reshape(64, -1), corr.reshape(64, -1))
 
 
 def fdct_quantize(x_cm, recip, corr):

@@ -5,7 +5,9 @@ Counterpart of the coefficient-major path of ``tpuenc/kernels/pipeline.py``
 subsampling with the -128 level shift, blockify into (64, blocks), K1
 (fDCT + zigzag + quantize, :mod:`.pallas_fdct`), then the raster -> MCU
 column permutation of interleaved scans, or the per-component crop of
-sequential and progressive ones.  Semantics follow the reference exactly:
+sequential and progressive ones.  :func:`fn_cm_samples` stops before K1:
+it gives the interleaved sample stream that K8 transforms and packs in
+one pass.  Semantics follow the reference exactly:
 
 * edge replication of the last row/column (encoder.rs:738-744), never
   zero padding;
@@ -109,6 +111,46 @@ def scan_layout(width: int, height: int, color_type: ColorType,
     return layout
 
 
+def _sample_streams(pixels, width: int, height: int, color_type: ColorType,
+                    config: EncoderConfig):
+    """Each component's level-shifted samples, coefficient-major: the
+    components, the MCU grid (rows, cols), and one int32 (64, R*C) block
+    stream per component over its MCU-padded grid in raster order."""
+    color_type = ColorType(color_type)
+    components = init_components(color_type.jpeg_color_type,
+                                 config.sampling_factor)
+    max_h, max_v = max_sampling(components)
+    num_cols = _cdiv(width, 8 * max_h)
+    num_rows = _cdiv(height, 8 * max_v)
+    pad_w = num_cols * 8 * max_h
+    pad_h = num_rows * 8 * max_v
+
+    planes = to_planes(pixels, color_type)
+    samples = []
+    for comp in components:
+        plane = _pad_edge(planes[comp.id], pad_h, pad_w)
+        samples.append(_blockify_cm(
+            plane, max_v // comp.vertical_sampling_factor,
+            max_h // comp.horizontal_sampling_factor))
+    return components, (num_rows, num_cols), samples
+
+
+def _mcu_order(streams, components, grid):
+    """The interleaved MCU stream (64, mcu_count * blocks_per_mcu) from
+    each component's raster-ordered (64, R*C) stream: columns raster ->
+    MCU order (factor as (rows, cv, cols, ch) and swap (cv, cols)), then
+    each MCU's blocks component by component."""
+    num_rows, num_cols = grid
+    mcu = []
+    for comp, x in zip(components, streams):
+        cv = comp.vertical_sampling_factor
+        ch = comp.horizontal_sampling_factor
+        if cv > 1 or ch > 1:
+            x = x.reshape(64, num_rows, cv, num_cols, ch).permute(0, 1, 3, 2, 4)
+        mcu.append(x.reshape(64, num_rows * num_cols, cv * ch))
+    return torch.cat(mcu, dim=-1).reshape(64, -1)
+
+
 def fn_cm(pixels, width: int, height: int, color_type: ColorType,
           config: EncoderConfig, reciprocals, corrections):
     """The coefficient streams of one image, coefficient-major.
@@ -123,36 +165,37 @@ def fn_cm(pixels, width: int, height: int, color_type: ColorType,
     ceil(ceil(H/8)/v_scale) grid (encoder.rs:1012-1025), which can be a
     block narrower than the MCU-padded grid.
     """
-    color_type = ColorType(color_type)
-    components = init_components(color_type.jpeg_color_type,
-                                 config.sampling_factor)
+    components, grid, samples = _sample_streams(pixels, width, height,
+                                                color_type, config)
     max_h, max_v = max_sampling(components)
-    num_cols = _cdiv(width, 8 * max_h)
-    num_rows = _cdiv(height, 8 * max_v)
-    pad_w = num_cols * 8 * max_h
-    pad_h = num_rows * 8 * max_v
-
-    planes = to_planes(pixels, color_type)
     streams = []
-    for comp in components:
-        ch = comp.horizontal_sampling_factor
-        cv = comp.vertical_sampling_factor
-        plane = _pad_edge(planes[comp.id], pad_h, pad_w)
-        x_cm = _blockify_cm(plane, max_v // cv, max_h // ch)
+    for comp, x_cm in zip(components, samples):
         t = comp.quantization_table
-        x = fdct_quantize(x_cm, reciprocals[t], corrections[t])
-        if config.mode() != "interleaved":
-            rows = _cdiv(_cdiv(height, 8), max_v // cv)
-            cols = _cdiv(_cdiv(width, 8), max_h // ch)
-            x = x.view(64, num_rows * cv, num_cols * ch)[:, :rows, :cols]
-            streams.append(x.reshape(64, rows * cols))
-            continue
-        # Columns raster -> MCU order: factor as (rows, cv, cols, ch) and
-        # swap (cv, cols).
-        if cv > 1 or ch > 1:
-            x = x.reshape(64, num_rows, cv, num_cols, ch).permute(0, 1, 3, 2, 4)
-        streams.append(x.reshape(64, num_rows * num_cols, cv * ch))
+        streams.append(fdct_quantize(x_cm, reciprocals[t], corrections[t]))
+    if config.mode() == "interleaved":
+        return (_mcu_order(streams, components, grid),)
+    cropped = []
+    for comp, x in zip(components, streams):
+        cv = comp.vertical_sampling_factor
+        ch = comp.horizontal_sampling_factor
+        rows = _cdiv(_cdiv(height, 8), max_v // cv)
+        cols = _cdiv(_cdiv(width, 8), max_h // ch)
+        x = x.view(64, grid[0] * cv, grid[1] * ch)[:, :rows, :cols]
+        cropped.append(x.reshape(64, rows * cols))
+    return tuple(cropped)
+
+
+def fn_cm_samples(pixels, width: int, height: int, color_type: ColorType,
+                  config: EncoderConfig):
+    """The MCU-ordered, level-shifted sample stream of an interleaved
+    scan, int16 (64, mcu_count * blocks_per_mcu): K8's input
+    (``entropy.pallas_pack.fused_sample_pack_blocks``).  The same color
+    conversion, padding, blockify and MCU column order as :func:`fn_cm`,
+    with no transform.  Raises ``ValueError`` for a config that is not
+    interleaved."""
     if config.mode() != "interleaved":
-        return tuple(streams)
-    mcu = torch.cat(streams, dim=-1)
-    return (mcu.reshape(64, -1),)
+        raise ValueError(f"fn_cm_samples takes an interleaved config, got "
+                         f"{config.mode()}")
+    components, grid, samples = _sample_streams(pixels, width, height,
+                                                color_type, config)
+    return _mcu_order([x.to(torch.int16) for x in samples], components, grid)

@@ -30,13 +30,17 @@ def _icc_bytes():
     return bytes(np.random.default_rng(1234).integers(0, 256, 70000, np.uint8))
 
 
-def build_cases(device):
+def build_cases(device, fused_p1=False):
     """name -> (encoder factory, color type, channels, seed, width, height),
-    as ``generate.py:build_cases`` with every encoder on ``device``."""
+    as ``generate.py:build_cases`` with every encoder on ``device`` and
+    built with ``fused_p1``."""
+
+    def new(q):
+        return Encoder(q, device=device, fused_p1=fused_p1)
 
     def enc(q, sampling=None, restart=None, scans=None, optimize=False):
         def build():
-            e = Encoder(q, device=device)
+            e = new(q)
             if sampling is not None:
                 e.set_sampling_factor(sampling)
             if restart is not None:
@@ -49,29 +53,29 @@ def build_cases(device):
         return build
 
     def custom_q():
-        e = Encoder(50, device=device)  # quality is ignored for custom tables
+        e = new(50)  # quality is ignored for custom tables
         e.set_quantization_tables([1] * 64, [1] * 64)
         return e
 
     def preset_q():
-        e = Encoder(80, device=device)
+        e = new(80)
         e.set_quantization_tables("custom_ms_ssim", "custom_ms_ssim")
         return e
 
     def icc():
-        e = Encoder(90, device=device)
+        e = new(90)
         e.add_icc_profile(_icc_bytes())
         return e
 
     def metadata():
-        e = Encoder(88, device=device)
+        e = new(88)
         e.add_exif_metadata(b"II*\x00\x08\x00\x00\x00tpuenc-exif")
         e.add_app_segment(5, b"tpuenc-fixture-app5")
         e.set_density(PixelDensity.dpi(300))
         return e
 
     def q100_flat():
-        e = Encoder(100, device=device)
+        e = new(100)
         e.set_quantization_tables("flat", "flat")
         return e
 
