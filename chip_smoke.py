@@ -8,20 +8,23 @@ Phases, each printing its own lines and its wall seconds:
    no CUDA device is an error;
 2. build the CUDA kernels from ``tpuenc_torch/csrc`` (one nvcc per source,
    all started together) and time the build; beside it, ``nvcc -Xptxas -v``
-   reports the registers, stack and spills of K1, K2 and K8;
+   reports the registers, stack, spills and static shared memory of K1, K2,
+   K3/K4 and K8;
 3. each kernel (K1-K9) against its plain PyTorch version on the same CUDA
    tensors, at the flagship's shapes (2000x1800 RGB, 56,250 blocks per
    component): K1 on the luma plane; K2 on the interleaved stream at block
    budgets 16 and 48; K8 on the interleaved sample stream at the same
    budgets, and on a 3840x2160 q80 4:2:0 image with restart interval 64
-   at budget 16, each also equal to K1 -> DC differences -> K2; K3-K5 at
-   budget rungs 5 and 16; K6 on the progressive luma stream with the
-   4-scan plan's three bands at block budgets 16 and 48; K7 on the same
-   stream and bands; K9 on its band (1, 64).  Bit-exact (tolerance 0),
-   with both times (CUDA events, median of 10 warm runs) and the kernel's
-   bound: the bytes it must move (each input read once, each output
-   written once; bit strings read only up to their lengths) over the
-   H100's 3.35 TB/s;
+   at budget 16, each also equal to K1 -> DC differences -> K2; K3 and K4
+   at budget rungs 5, 16 and 48, K5 at 5 and 16; K6 on the progressive
+   luma stream with the 4-scan plan's three bands at block budgets 16 and
+   48; K7 on the same stream and bands; K9 on its band (1, 64).
+   Bit-exact (tolerance 0), with the kernel's device time, the wrapper's
+   time and the plain version's (CUDA events, median of 10 warm runs; see
+   ``cuda_ms``), the K2-K4 lines also with the first designs' times from
+   PERF.md, and the kernel's bound: the bytes it must move (each input
+   read once, each output written once; bit strings read only up to their
+   lengths) over the H100's 3.35 TB/s;
 4. the 26 frozen fixtures encoded on the card, byte for byte;
 5. the interleaved flagship, ``Encoder(90, device="cuda").encode(rgb,
    2000, 1800, ColorType.RGB)``: the same bytes as the CPU path, K1-K5
@@ -42,6 +45,14 @@ Phases, each printing its own lines and its wall seconds:
 It prints a JSON line of the kernels, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failure raises, so the
 exit code is not 0 and no result line is printed.
+
+    python3 chip_smoke.py --ab DIR
+
+times K2, K3 and K4 at the flagship's shapes (phase 3's cases, each way
+``cuda_ms`` has, and the kernel's own time from ``torch.profiler``) for
+the checkout in DIR and for this one, in turns (DIR, this, this, DIR),
+one child process each, and prints one JSON line per turn: the way to
+hold a kernel against an earlier version of it on one card.
 """
 
 import json
@@ -85,18 +96,42 @@ def card_line():
                 "--format=csv,noheader"]).strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=10):
-    """Median device time of ``fn`` in ms over ``reps`` warm runs."""
+# SM clock cycles of the spin that holds the card ahead of a queued
+# timing (about 1 ms); a timing doubles it while the host's enqueue
+# outlasts half of it.
+SPIN_CYCLES = 2_000_000
+
+
+def cuda_ms(fn, reps=10, queued=False):
+    """Median time of ``fn`` in ms over ``reps`` warm runs, from CUDA
+    events recorded around it on the current stream.
+
+    By default the card is idle when the first event is recorded, so the
+    time includes the host's work in ``fn`` up to its last launch (a
+    wrapper's checks and allocations).  With ``queued`` the card first
+    spins (``torch.cuda._sleep``) while the host enqueues both events and
+    everything ``fn`` launches, so the time is the device work alone: for
+    a kernel's wrapper, its kernel and the wrapper's small fills."""
+    spin = SPIN_CYCLES
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    while len(times) < reps:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if queued:
+            s = torch.cuda.Event(enable_timing=True)
+            s.record()
+            torch.cuda._sleep(spin)
+        t0 = time.perf_counter()
         a.record()
         fn()
         b.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
         b.synchronize()
+        if queued and host_ms > 0.5 * s.elapsed_time(a):
+            spin *= 2  # the card may have caught up with the host
+            continue
         times.append(a.elapsed_time(b))
     return statistics.median(times)
 
@@ -140,12 +175,15 @@ def phase_env():
     print(f"device: {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
 
-PTXAS_REPORTED = ("fdct_quantize.cu", "pack_blocks.cu", "fused_sample_pack.cu")
+PTXAS_REPORTED = ("fdct_quantize.cu", "pack_blocks.cu", "merge_rows.cu",
+                  "fused_sample_pack.cu")
 
 
 def phase_build():
     """The library build, and beside it one ``-Xptxas -v`` compile of each
-    of K1, K2 and K8 for their registers, stack and spills."""
+    of K1, K2, K3/K4 and K8 for their registers, stack, spills and static
+    shared memory (K2's tile and K3/K4's prefix are dynamic shared memory,
+    sized at launch, which ptxas does not see)."""
     import tempfile
 
     from tpuenc_torch import cuda_lib
@@ -180,6 +218,88 @@ def phase_build():
         shutil.rmtree(tmp)
 
 
+# The first designs of K2 (one thread per block writing its row to device
+# memory) and K3/K4 (one thread block per run, atomicOr scatter): their ms
+# in PERF.md section 6, CUDA events around the wrapper (``cuda_ms`` without
+# ``queued``), NVIDIA H100 80GB HBM3 at 700 W, two calls where both ran.
+FIRST_DESIGN_MS = {
+    "K2 pack_blocks budget 16": "0.1377 / 0.1115",
+    "K2 pack_blocks budget 48": "0.2930",
+    "K3 merge_chunks rung 5": "0.0825 / 0.0910",
+    "K3 merge_chunks rung 16": "0.0988",
+    "K4 fold_rows rung 5": "0.0622 / 0.0533",
+    "K4 fold_rows rung 16": "0.0867",
+}
+
+
+def flagship_inputs(dev):
+    """What phase 3 and ``--ab`` feed K2-K4: the packed tables, the
+    interleaved scan's spec and (64, B) coefficient stream, its DC
+    differences and Bp, with the pixels, layout and config they came from."""
+    from tpuenc_torch import params_from_numpy
+    from tpuenc_torch.core.tables import default_tables, quantization_table
+    from tpuenc_torch.core.types import ColorType, EncoderConfig
+    from tpuenc_torch.entropy import device_encode as de
+    from tpuenc_torch.entropy import pallas_pack as pk
+    from tpuenc_torch.kernels import pipeline
+
+    config = EncoderConfig(quality=90)
+    q_tables = [quantization_table("default", 90, True),
+                quantization_table("default", 90, False)]
+    huffman = [list(p) for p in default_tables()]
+    params = params_from_numpy(q_tables, *de.tables_to_arrays(huffman), dev)
+    px = torch.from_numpy(make_rgb(FLAGSHIP_W, FLAGSHIP_H)).to(dev)
+    layout = pipeline.scan_layout(FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB, config)
+    ((_, spec, _),) = de.build_scan_plan(layout, layout["components"], config)
+    (stream,) = pipeline.fn_cm(px, FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB,
+                               config, params.reciprocals, params.corrections)
+    B = stream.shape[1]
+    Bp = -(-B // 512) * 512
+    dcdiff = pk.dc_diffs_from_dc(stream[0], spec)
+    return params, spec, stream, dcdiff, Bp, px, layout, config
+
+
+def p1_merge_cases(params, spec, stream, dcdiff, Bp):
+    """Phase 3's K2, K3 and K4 cases on the flagship stream: yields
+    ``(key, kernel, plain, read_bytes)`` in order, each case's inputs made
+    by running the kernel of the case before it.  K2 at block budgets 16
+    and 48; K3 and K4 at budget rungs 5 and 16, which pack their blocks at
+    block budget max(rung, 16) = 16, and 48."""
+    from tpuenc_torch.entropy import pallas_pack as pk
+
+    tables = nbytes(params.dc, params.ac)
+    strings = {}
+    for bb in (16, 48):
+        def k2(bb=bb):
+            return pk.pack_blocks(stream, dcdiff, params.dc, params.ac, spec,
+                                  Bp, bb)
+
+        def k2_plain(bb=bb):
+            return pk.pack_blocks_ref(stream, dcdiff, params.dc, params.ac,
+                                      spec, Bp, bb)
+
+        yield f"K2 pack_blocks budget {bb}", k2, k2_plain, \
+            nbytes(stream, dcdiff) + tables
+        strings[bb] = k2()
+    n_sub = 128
+    for rung in (5, 16, 48):
+        words, lens, _ = strings[max(rung, 16)]
+        chunk, n2, caps, caps_f = pk.merge_plan(Bp, words.shape[1], rung, n_sub)
+        if caps_f is None:
+            raise AssertionError(f"rung {rung}: the flagship has no P3 fold")
+        args = (words, lens, chunk, n_sub * n2, caps, caps[-1])
+        yield f"K3 merge_chunks rung {rung}", \
+            lambda a=args: pk.merge_chunks(*a), \
+            lambda a=args: pk.merge_rows_ref(*a), \
+            string_bytes(lens) + nbytes(lens)
+        rows, row_bits, _ = pk.merge_chunks(*args)
+        fargs = (rows, row_bits, n2, n_sub, caps_f, caps_f[-1])
+        yield f"K4 fold_rows rung {rung}", \
+            lambda a=fargs: pk.fold_rows(*a), \
+            lambda a=fargs: pk.merge_rows_ref(*a), \
+            string_bytes(row_bits) + nbytes(row_bits)
+
+
 def phase_kernels(dev):
     """Each kernel against its plain version on the flagship's tensors."""
     from tpuenc_torch import params_from_numpy
@@ -199,12 +319,8 @@ def phase_kernels(dev):
                     quantization_table("default", quality, False)]
         return params_from_numpy(q_tables, *de.tables_to_arrays(huffman), dev)
 
-    config = EncoderConfig(quality=90)
-    params = encode_params(90)
+    params, spec, stream, dcdiff, Bp, px, layout, config = flagship_inputs(dev)
     tables = nbytes(params.dc, params.ac)
-    px = torch.from_numpy(make_rgb(FLAGSHIP_W, FLAGSHIP_H)).to(dev)
-    layout = pipeline.scan_layout(FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB, config)
-    ((_, spec, _),) = de.build_scan_plan(layout, layout["components"], config)
 
     results = {}
 
@@ -215,13 +331,18 @@ def phase_kernels(dev):
         err = max_abs_err(got, want)
         if err != 0:
             raise AssertionError(f"{key}: kernel differs from plain, max |err| {err}")
-        ms = cuda_ms(kernel, reps)
+        ms = cuda_ms(kernel, reps, queued=True)
+        wrapper_ms = cuda_ms(kernel, reps)
         plain_ms = cuda_ms(plain, reps)
         bound = bound_ms(read_bytes, got)
-        print(f"  {key:44s} max|err| {err}  kernel {ms:9.4f} ms  "
-              f"plain {plain_ms:9.4f} ms  bound {bound:8.5f} ms "
+        first = FIRST_DESIGN_MS.get(key)
+        print(f"  {key:44s} max|err| {err}  kernel {ms:9.4f} ms "
+              f"(with its wrapper {wrapper_ms:9.4f} ms"
+              + (f"; first design {first} ms)" if first else ")")
+              + f"  plain {plain_ms:9.4f} ms  bound {bound:8.5f} ms "
               f"({bound / ms:.1%} of it)")
-        results[key] = (err, ms, plain_ms, bound)
+        results[key] = {"err": err, "ms": ms, "wrapper_ms": wrapper_ms,
+                        "plain_ms": plain_ms, "bound": bound}
         return got
 
     def same_as_split(key, got, split):
@@ -239,22 +360,13 @@ def phase_kernels(dev):
           lambda: pallas_fdct.fdct_quantize_ref(x_cm, r, c),
           nbytes(x_cm, r, c))
 
-    (stream,) = pipeline.fn_cm(px, FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB,
-                               config, params.reciprocals, params.corrections)
-    B = stream.shape[1]
-    Bp = -(-B // 512) * 512
-    print(f"  flagship stream: {B} blocks, padded to {Bp}")
-    dcdiff = pk.dc_diffs_from_dc(stream[0], spec)
+    print(f"  flagship stream: {stream.shape[1]} blocks, padded to {Bp}")
     strings = {}
-    for block_budget in (16, 48):
-        strings[block_budget] = check(
-            f"K2 pack_blocks budget {block_budget}",
-            lambda: pk.pack_blocks(stream, dcdiff, params.dc, params.ac, spec,
-                                   Bp, block_budget),
-            lambda: pk.pack_blocks_ref(stream, dcdiff, params.dc, params.ac,
-                                       spec, Bp, block_budget),
-            nbytes(stream, dcdiff) + tables,
-        )
+    for key, kernel, plain, read_bytes in p1_merge_cases(params, spec, stream,
+                                                         dcdiff, Bp):
+        got = check(key, kernel, plain, read_bytes)
+        if key.startswith("K2"):
+            strings[int(key.split()[-1])] = got
 
     # K8 on the flagship's interleaved samples, at the same budgets.
     samples = pipeline.fn_cm_samples(px, FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB,
@@ -308,28 +420,20 @@ def phase_kernels(dev):
     same_as_split(key, got, pk.scan_pack_blocks(ustream, uspec, uparams.dc,
                                                 uparams.ac, 16))
 
-    # Rungs 5 and 16 both pack their blocks at block budget max(rung, 16).
-    words, lens, _ = strings[16]
+    # The merge plans of K3/K4's rungs; K5 on K4's rows at rungs 5 and 16.
     n_sub = 128
-    for rung in (5, 16):
+    for rung in (5, 16, 48):
+        words, lens, _ = strings[max(rung, 16)]
         capB = words.shape[1]
         chunk, n2, caps, caps_f = pk.merge_plan(Bp, capB, rung, n_sub)
-        rows, row_bits, _ = check(
-            f"K3 merge_chunks rung {rung}",
-            lambda: pk.merge_chunks(words, lens, chunk, n_sub * n2, caps, caps[-1]),
-            lambda: pk.merge_rows_ref(words, lens, chunk, n_sub * n2, caps, caps[-1]),
-            string_bytes(lens) + nbytes(lens),
-        )
-        if caps_f is None:
-            raise AssertionError(f"rung {rung}: the flagship has no P3 fold")
         print(f"  rung {rung}: capB {capB}, chunk {chunk}, n2 {n2}, "
               f"P2 cap {caps[-1]}, P3 cap {caps_f[-1]}")
-        frows, fbits, _ = check(
-            f"K4 fold_rows rung {rung}",
-            lambda: pk.fold_rows(rows, row_bits, n2, n_sub, caps_f, caps_f[-1]),
-            lambda: pk.merge_rows_ref(rows, row_bits, n2, n_sub, caps_f, caps_f[-1]),
-            string_bytes(row_bits) + nbytes(row_bits),
-        )
+        if rung == 48:
+            continue
+        rows, row_bits, _ = pk.merge_chunks(words, lens, chunk, n_sub * n2,
+                                            caps, caps[-1])
+        frows, fbits, _ = pk.fold_rows(rows, row_bits, n2, n_sub, caps_f,
+                                       caps_f[-1])
         pos = torch.cumsum(fbits.to(torch.int64), 0) - fbits
         capW = -(-(n_sub * caps_f[-1] + caps_f[-1] + 256) // 128) * 128
         check(f"K5 concat_rows rung {rung}",
@@ -685,7 +789,68 @@ KERNELS = [
 ]
 
 
+def profiled_ms(fn, kernel_name, reps=10):
+    """The mean device time in ms of the kernels named ``kernel_name`` over
+    ``reps`` warm calls of ``fn``, from ``torch.profiler``; None where the
+    profiler did not see each launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, count = 0.0, 0
+    for ev in prof.key_averages():
+        if kernel_name in ev.key:
+            us += getattr(ev, "self_device_time_total", None) or \
+                getattr(ev, "self_cuda_time_total", 0.0)
+            count += ev.count
+    return us / count / 1e3 if count == reps else None
+
+
+def ab_times(dev):
+    """One turn of ``--ab``: phase 3's K2-K4 cases on this process's
+    ``tpuenc_torch``, each timed three ways, as one JSON line."""
+    from tpuenc_torch import cuda_lib
+
+    inputs = flagship_inputs(dev)[:5]
+    out = {"checkout": os.path.dirname(os.path.dirname(cuda_lib.__file__)),
+           "card": card_line()}
+    for key, kernel, _, read_bytes in p1_merge_cases(*inputs):
+        got = kernel()
+        out[key] = {
+            "ms": cuda_ms(kernel, queued=True),
+            "wrapper_ms": cuda_ms(kernel),
+            "profiler_ms": profiled_ms(kernel, "pack_blocks_kernel"
+                                       if key.startswith("K2")
+                                       else "merge_rows_kernel"),
+            "bound_ms": bound_ms(read_bytes, got),
+        }
+    print(json.dumps(out), flush=True)
+
+
+def ab(other):
+    """``--ab DIR``: turns of ``ab_times`` in child processes, DIR's
+    checkout and this one in the order DIR, this, this, DIR."""
+    other = os.path.abspath(other)
+    for checkout in (other, HERE, HERE, other):
+        subprocess.run([sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                        "--ab-turn", checkout], check=True)
+
+
 def main():
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab":
+        return ab(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab-turn":
+        # Import tpuenc_torch from that checkout, ahead of this one.
+        sys.path.insert(0, sys.argv[2])
+        if not torch.cuda.is_available():
+            raise RuntimeError("torch.cuda.is_available() is false: no GPU")
+        return ab_times(torch.device("cuda:0"))
+    if len(sys.argv) != 1:
+        raise SystemExit(__doc__)
     dev = torch.device("cuda:0")
     flagship = {}
 
@@ -717,15 +882,18 @@ def main():
 
     kernels = []
     for name, counter, key, source, replaces in KERNELS:
-        _, ms, plain_ms, bound = results[key]
-        errs = [v[0] for k, v in results.items() if k.startswith(name)]
+        r = results[key]
+        errs = [v["err"] for k, v in results.items() if k.startswith(name)]
         by_path = {p: n[counter] for p, n in paths.items() if n[counter]}
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
-            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            # ms: the kernel's device time (cuda_ms queued); wrapper_ms:
+            # with the wrapper's host time, as the card's caller sees it.
+            "max_abs_err": max(errs), "ms": r["ms"],
+            "wrapper_ms": r["wrapper_ms"], "plain_ms": r["plain_ms"],
             # Integer work, no matrix product: the bytes bound it.
-            "bound_ms": bound, "bound_by": "bytes",
+            "bound_ms": r["bound"], "bound_by": "bytes",
             # No single PyTorch call computes any of these functions.
             "library_ms": None,
             "path": "+".join(by_path), "launches_by_path": by_path,

@@ -74,10 +74,19 @@ SPECS = [
     _spec((0, 1, 2, 3), (1, 1, 1, 0), 0),
     _spec((0,), (0,), 5),
     _spec((0,), (1,), 0, ss=6, se=40, emit_dc=False),
+    # The longest table pattern K2 takes: 16 blocks, four components.
+    _spec((0,) * 4 + (1,) * 4 + (2,) * 4 + (3,) * 4, (0, 1, 1, 0), 48),
 ]
 
 
-def _blocks(B, seed):
+def _blocks(B, seed, extremes=False):
+    """Sparse and dense blocks; those at 10-13 overflow rung 16.  With
+    ``extremes``, blocks 5 and 9 hold the largest magnitudes: size 15
+    items, and -32768 (size 16, whose bit overlaps the run's low bit in
+    the symbol) after a run of 15 zeros and right after the DC; block 6
+    (luma in the 3-block pattern) holds 63 size-10 items, 26 bits each
+    with the default luma table, which overflow block budgets 16 and 48
+    (224 has room)."""
     rng = np.random.default_rng(seed)
     q = np.zeros((64, B), np.int16)
     mask = rng.random((64, B)) < 0.2
@@ -86,30 +95,59 @@ def _blocks(B, seed):
     q[1:40, 1::7] = 0
     q[:, 3::11] = rng.integers(-60, 60, (64, q[:, 3::11].shape[1]))
     q[:, 10:14] = rng.integers(-900, 900, (64, 4))  # overflow rung 16
+    if extremes:
+        q[:, 5] = np.where(np.arange(64) % 2 == 0, 32767, -32767)
+        q[1:16, 5] = 0
+        q[16, 5] = -32768
+        q[:, 9] = -32768
+        q[0, 7] = 32767
+        q[1:, 6] = np.where(np.arange(1, 64) % 2 == 0, 1023, -1023)
     return q
 
 
-@pytest.mark.parametrize("si", range(len(SPECS)))
-@pytest.mark.parametrize("budget", [16, 48])
-def test_k2_matches_plain(dev, si, budget):
+# name: (spec index, B, Bp, extremes).  Every B ends inside a thread
+# block's tile of 128 blocks, with padding rows after it; Bp = 1100 also
+# ends the last tile part way.
+K2_CASES = {f"spec{i}": (i, 1000, 1024, False) for i in range(len(SPECS))}
+K2_CASES.update({
+    "spec1_bp_partial_tile": (1, 1001, 1100, False),
+    "pattern16_bp_partial_tile": (5, 1003, 1100, False),
+    "extremes": (0, 1000, 1024, True),
+})
+
+
+@pytest.mark.parametrize("case", sorted(K2_CASES))
+@pytest.mark.parametrize("budget", [16, 48, 224])
+def test_k2_matches_plain(dev, case, budget):
+    si, B, Bp, extremes = K2_CASES[case]
     spec = SPECS[si]
     p = _params(dev)
-    q = torch.from_numpy(_blocks(1000, si)).to(dev)
+    q = torch.from_numpy(_blocks(B, si, extremes)).to(dev)
     dcdiff = tpack.dc_diffs_from_dc(q[0], spec)
     n = tpack.pack_blocks.launches
-    got = tpack.pack_blocks(q, dcdiff, p.dc, p.ac, spec, 1024, budget)
+    got = tpack.pack_blocks(q, dcdiff, p.dc, p.ac, spec, Bp, budget)
     torch.cuda.synchronize()
-    want = tpack.pack_blocks_ref(q, dcdiff, p.dc, p.ac, spec, 1024, budget)
+    want = tpack.pack_blocks_ref(q, dcdiff, p.dc, p.ac, spec, Bp, budget)
     assert tpack.pack_blocks.launches == n + 1
+    assert got[0].shape == (Bp, tpack.final_block_cap(budget))
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    if si == 0:
+    assert not got[1][B:].any() and not got[0][B:].any()
+    if case == "spec0":
         assert bool(got[2].item()) == (budget == 16)
+    if extremes:
+        assert bool(got[2].item()) == (budget < 224)
 
 
-def _strings(Bp, capB, seed, mean_bits):
+def _strings(Bp, capB, seed, mean_bits, clip=True):
+    """MSB-aligned random bit strings, zero past their lengths; 10% are
+    empty.  Unless ``clip``, a length may pass the row's 32 * capB bits,
+    as K2 leaves a block that overflows its cap."""
     rng = np.random.default_rng(seed)
-    lens = np.minimum(rng.poisson(mean_bits, Bp), 32 * capB).astype(np.int32)
+    lens = rng.poisson(mean_bits, Bp)
+    if clip:
+        lens = np.minimum(lens, 32 * capB)
+    lens = lens.astype(np.int32)
     lens[rng.random(Bp) < 0.1] = 0
     words = rng.integers(0, 1 << 32, (Bp, capB), dtype=np.uint64)
     full = np.clip(lens[:, None] - np.arange(capB)[None, :] * 32, 0, 32)
@@ -118,21 +156,52 @@ def _strings(Bp, capB, seed, mean_bits):
     return words, lens
 
 
-@pytest.mark.parametrize("run,n_runs,budget,mean_bits", [
-    (8, 16 * 5, 16, 150),
-    (256, 128, 5, 130),     # the flagship's P2 shape at rung 5
-    (6, 128, 5, 590),       # a P3-like fold that overflows
-])
-def test_k3_k4_match_plain(dev, run, n_runs, budget, mean_bits):
-    capB = tpack.final_block_cap(max(budget, 16))
-    words, lens = _strings(run * n_runs - 37, capB, run, mean_bits)
+# name: (run, n_runs, C_in, mean bits per row, budget, options).  The
+# input has run * n_runs - short rows (short 37 unless given), so the last
+# runs are cut short; options: clip=False lets rows pass 32 * C_in bits,
+# empty_runs zeroes every other run, cap_out / caps replace the P2 plan's
+# (chunk_caps; fold_caps with fold=True), ovf is the flag it must give.
+MERGES = {
+    "p2": (8, 80, 19, 150, 16, {}),
+    "p2_flagship_rung5": (256, 128, 19, 130, 5, {}),
+    "p3_overflow": (6, 128, 19, 590, 5, {"clip": False, "ovf": 1}),
+    "rows_past_c_in": (8, 40, 3, 200, 16, {"clip": False}),
+    "one_to_six_bit_rows": (256, 24, 1, 3, 5, {}),
+    "empty_runs": (16, 30, 5, 60, 16, {"empty_runs": True}),
+    "all_empty": (16, 30, 5, 0, 16, {"ovf": 0}),
+    "past_cap_out": (16, 30, 5, 150, 16, {"cap_out": 7, "caps": [2] * 4,
+                                           "ovf": 1}),
+    "run_1": (1, 300, 19, 150, 16, {}),
+    "run_6000": (6000, 3, 2, 20, 5, {}),
+    "p3_flagship": (6, 128, 1536, 33000, 5, {"fold": True, "short": 0}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MERGES))
+def test_k3_k4_match_plain(dev, case):
+    """Both wrappers of the merge kernel against its plain version: words
+    (the zero tail included), lengths and the flag."""
+    run, n_runs, c_in, mean_bits, budget, opt = MERGES[case]
+    words, lens = _strings(run * n_runs - opt.get("short", 37), c_in, run,
+                           mean_bits, opt.get("clip", True))
+    if opt.get("empty_runs"):
+        lens.reshape(-1)[:(len(lens) // run) * run].reshape(-1, run)[::2] = 0
+        words[lens == 0] = 0
     w = torch.from_numpy(words).to(dev)
     ln = torch.from_numpy(lens).to(dev)
-    caps = tpack.chunk_caps(capB, 1 << (run - 1).bit_length(), budget)
-    want = tpack.merge_rows_ref(w, ln, run, n_runs, caps, caps[-1])
+    n_chunks = 1 << (run - 1).bit_length()
+    if opt.get("fold"):
+        caps = tpack.fold_caps(c_in, n_chunks, budget * 256)
+    else:
+        caps = tpack.chunk_caps(c_in, n_chunks, budget)
+    caps = opt.get("caps", caps)
+    cap_out = opt.get("cap_out", caps[-1] if caps else c_in)
+    want = tpack.merge_rows_ref(w, ln, run, n_runs, caps, cap_out)
+    if "ovf" in opt:
+        assert int(want[2].item()) == opt["ovf"]
     for fn in (tpack.merge_chunks, tpack.fold_rows):
         n = fn.launches
-        got = fn(w, ln, run, n_runs, caps, caps[-1])
+        got = fn(w, ln, run, n_runs, caps, cap_out)
         torch.cuda.synchronize()
         assert fn.launches == n + 1
         for g, x in zip(got, want):

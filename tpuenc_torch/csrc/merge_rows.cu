@@ -5,76 +5,187 @@
 // by _build_fold_rows_fn).  On the TPU the two are separate kernels
 // because their layouts differ (substreams on lanes vs. words on lanes);
 // both compute the same thing: for each run of `run` consecutive input
-// rows (MSB-aligned words + bit lengths), the bit concatenation of the
-// run in one output row of cap_out words, its total length, and the
-// overflow flag of the TPU's pairwise merge tree.  That flag is set when
-// any aligned window of 2^(l+1) rows holds more than 32 x caps[l] bits
-// (chunk_caps / fold_caps), exactly as _merge_ncT / _merge_nsc set it,
-// since those never clip the lengths they add.  Rows at or past n_rows
-// are empty, which stands in for the zero padding the TPU version
-// materialises (Bp -> n_sub * n1p rows, n2 -> n2p chunk rows).
+// rows (MSB-aligned words, zero past their bit lengths), the bit
+// concatenation of the run in one output row of cap_out words, its total
+// length, and the overflow flag of the TPU's pairwise merge tree.  That
+// flag is set when any aligned window of 2^(l+1) rows holds more than
+// 32 x caps[l] bits (chunk_caps / fold_caps), exactly as _merge_ncT /
+// _merge_nsc set it, since those never clip the lengths they add.  Rows at
+// or past n_rows are empty, which stands in for the zero padding the TPU
+// version materialises (Bp -> n_sub * n1p rows, n2 -> n2p chunk rows).
 //
-// Bound on the card: memory traffic and atomics.  Each input word is
-// read once and ORed into at most two output words; the arithmetic per
-// word is a handful of shifts.  Design: one thread block per run; the
-// run's exclusive prefix of lengths goes to shared memory, the window
-// sums for the overflow flag come from that prefix, and then the block's
-// threads stride over the run's (row, word) pairs in row-major order, so a
-// warp reads consecutive words, and scatter each word with atomicOr into
-// the zeroed output row.  Rows never share bits, so the OR order does not
-// change the result.
+// Bound on the card: memory traffic.  Every output word is written once,
+// its zero tail included (so the output needs no zero fill), and each
+// input word that holds bits is read about once: 5-6 MB, under 3 us at
+// the HBM rate, for the flagship's P2 and P3.  What bounds it in practice
+// is latency: each thread block must build its run's prefix of lengths
+// before it can place a word, and each word waits on a search of that
+// prefix and a load of its source words.
+//
+// Design: a gather.  The grid covers (run, tile of output words), with as
+// many tiles per run as fill the card's resident thread blocks once (P3's
+// 128 runs of 10,496 words become ~1,000 thread blocks, not 128).  Each
+// thread block loads its run's lengths into shared memory and turns them
+// into the prefix with a block-wide scan: each thread sums a contiguous
+// segment, warp shuffles scan the segment sums, one warp scans the warp
+// totals.  Tile 0 of each run writes the run's length and evaluates the
+// overflow windows, its threads splitting them.  Each thread then owns
+// output words w = tile start + k x kThreads + thread: it binary-searches
+// the prefix for the first row that ends past bit 32w, ORs in a register
+// the bits of every row that overlaps [32w, 32w + 32) (one funnel shift of
+// two adjacent source words per row; a word may span many short rows; a
+// stretch of empty rows, such as the padding blocks at a stream's end, is
+// crossed by one more search) and stores the word once.  A warp's stores,
+// and within a row its loads, are consecutive words.  Rows never share
+// bits, so the OR is the concatenation.  No atomics, no thread walks a
+// run.
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kMaxLevels = 24;
+constexpr int kMaxRun = 6000;  // (kMaxRun + 1) x 8 bytes of prefix < 48 KB
+constexpr int kThreads = 256;
+constexpr int kMinBlocks = 8;  // per SM: 32 registers a thread
+constexpr int kWarps = kThreads / 32;
 
 struct MergeCaps {
     int n_levels;
     int cap[kMaxLevels];
 };
 
-__global__ void merge_rows_kernel(const uint32_t* __restrict__ X,
-                                  const int32_t* __restrict__ L,
-                                  long long n_rows, int C_in, int run,
-                                  MergeCaps caps, uint32_t* __restrict__ out,
-                                  int cap_out, int32_t* __restrict__ out_len,
-                                  int32_t* __restrict__ overflow) {
-    extern __shared__ long long pref[];  // run + 1 entries
-    const long long r = blockIdx.x;
-    const long long row0 = r * run;
-
-    for (int i = threadIdx.x; i < run; i += blockDim.x) {
+// pref[i] <- the bits of rows [0, i) of the run that starts at row row0,
+// for i in [0, run]; rows at or past n_rows are empty.
+__device__ __forceinline__ void run_prefix(const int32_t* __restrict__ L,
+                                           long long row0, long long n_rows,
+                                           int run, long long* pref) {
+    __shared__ long long warp_total[kWarps];
+    const int t = threadIdx.x;
+    const int lane = t & 31;
+    const int warp = t >> 5;
+    for (int i = t; i < run; i += kThreads) {
         const long long row = row0 + i;
         pref[i + 1] = row < n_rows ? L[row] : 0;
     }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        pref[0] = 0;
-        for (int i = 1; i <= run; ++i) pref[i] += pref[i - 1];
-        out_len[r] = (int32_t)pref[run];
-        bool ovf = false;
-        for (int l = 0; l < caps.n_levels; ++l) {
-            const int size = 2 << l;
-            const long long lim = 32LL * caps.cap[l];
-            for (int m = 0; m < run; m += size) {
-                const int e = m + size < run ? m + size : run;
-                ovf |= pref[e] - pref[m] > lim;
-            }
-        }
-        if (ovf) *overflow = 1;
-    }
+    if (t == 0) pref[0] = 0;
     __syncthreads();
 
+    // Thread t owns rows [a, e): its segment sum, scanned across the warp.
+    const int per = (run + kThreads - 1) / kThreads;
+    const int a = min(run, t * per);
+    const int e = min(run, a + per);
+    long long seg = 0;
+    for (int i = a; i < e; ++i) seg += pref[i + 1];
+    long long incl = seg;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const long long y = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+        if (lane >= o) incl += y;
+    }
+    if (lane == 31) warp_total[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+        long long v = lane < kWarps ? warp_total[lane] : 0;
+#pragma unroll
+        for (int o = 1; o < kWarps; o <<= 1) {
+            const long long y = __shfl_up_sync(0xFFFFFFFFu, v, o);
+            if (lane >= o) v += y;
+        }
+        if (lane < kWarps) warp_total[lane] = v;
+    }
+    __syncthreads();
+    long long acc = incl - seg + (warp > 0 ? warp_total[warp - 1] : 0);
+    for (int i = a; i < e; ++i) {
+        acc += pref[i + 1];
+        pref[i + 1] = acc;
+    }
+    __syncthreads();
+}
+
+// The largest m in [lo, hi] with pref[m] <= x (pref[lo] <= x).
+__device__ __forceinline__ int last_at_most(const long long* pref, int lo,
+                                            int hi, long long x) {
+    while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (pref[mid] <= x) {
+            lo = mid;
+        } else {
+            hi = mid - 1;
+        }
+    }
+    return lo;
+}
+
+// Output word [bit, bit + 32) of the run whose rows start at Xr.
+__device__ __forceinline__ uint32_t gather_word(const uint32_t* __restrict__ Xr,
+                                                const long long* pref, int run,
+                                                int C_in, long long bit) {
+    // The first row that ends past bit: pref[run] > bit, so i < run.
+    int i = last_at_most(pref, 0, run, bit);
+    uint32_t word = 0;
+    while (i < run && pref[i] < bit + 32) {
+        const long long start = pref[i];
+        if (pref[i + 1] == start) {
+            // Rows i.. are empty up to the first that starts later.
+            i = last_at_most(pref, i + 1, run, start);
+            continue;
+        }
+        // Word j of the row counts where 32j < its length and j < C_in
+        // (merge_rows_ref's `active`); the row starts d bits before this
+        // word (d > -32; j = -1 where it starts inside it).
+        const long long n_words =
+            min((long long)C_in, (pref[i + 1] - start + 31) >> 5);
+        const long long d = bit - start;
+        const long long j = d >> 5;
+        const int sh = (int)(d & 31);
+        const uint32_t* src = Xr + (long long)i * C_in;
+        const uint32_t hi_w = j >= 0 && j < n_words ? src[j] : 0u;
+        const uint32_t lo_w = sh != 0 && j + 1 < n_words ? src[j + 1] : 0u;
+        word |= __funnelshift_l(lo_w, hi_w, sh);
+        ++i;
+    }
+    return word;
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+merge_rows_kernel(const uint32_t* __restrict__ X,
+                  const int32_t* __restrict__ L, long long n_rows, int C_in,
+                  int run, int tiles, int tile_words, MergeCaps caps,
+                  uint32_t* __restrict__ out, int cap_out,
+                  int32_t* __restrict__ out_len,
+                  int32_t* __restrict__ overflow) {
+    extern __shared__ long long pref[];  // run + 1 entries
+    const long long r = (long long)blockIdx.x / tiles;
+    const int tile = (int)((long long)blockIdx.x - r * tiles);
+    const long long row0 = r * run;
+    run_prefix(L, row0, n_rows, run, pref);
+    const long long total = pref[run];
+
+    if (tile == 0) {
+        bool ovf = false;
+#pragma unroll
+        for (int l = 0; l < kMaxLevels; ++l) {
+            if (l < caps.n_levels) {
+                const int size = 2 << l;
+                const long long lim = 32LL * caps.cap[l];
+                const int n_windows = (run + size - 1) / size;
+                for (int m = threadIdx.x; m < n_windows; m += kThreads) {
+                    const int s = m * size;
+                    ovf |= pref[min(s + size, run)] - pref[s] > lim;
+                }
+            }
+        }
+        if (__syncthreads_or(ovf) && threadIdx.x == 0) *overflow = 1;
+        if (threadIdx.x == 0) out_len[r] = (int32_t)total;
+    }
+
+    const uint32_t* Xr = X + row0 * C_in;
     uint32_t* orow = out + r * cap_out;
-    const int total = run * C_in;
-    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-        const int i = idx / C_in;
-        const int j = idx - i * C_in;
-        const long long row = row0 + i;
-        if (row >= n_rows || 32LL * j >= pref[i + 1] - pref[i]) continue;
-        tpuenc::or_at(orow, cap_out, pref[i] + 32LL * j, X[row * C_in + j]);
+    const int w_end = min(cap_out, (tile + 1) * tile_words);
+    for (int w = tile * tile_words + threadIdx.x; w < w_end; w += kThreads) {
+        const long long bit = 32LL * w;
+        orow[w] = bit < total ? gather_word(Xr, pref, run, C_in, bit) : 0u;
     }
 }
 
@@ -85,17 +196,35 @@ TPUENC_API int tpuenc_merge_rows(const void* X, const void* L,
                                  long long n_runs, const int* caps,
                                  int n_levels, void* out, int cap_out,
                                  void* out_len, void* overflow, void* stream) {
-    if (n_levels < 0 || n_levels > kMaxLevels) return (int)cudaErrorInvalidValue;
-    const size_t smem = sizeof(long long) * (size_t)(run + 1);
-    if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+    if (n_levels < 0 || n_levels > kMaxLevels || run < 1 || run > kMaxRun ||
+        C_in < 0 || cap_out < 0 || n_runs < 0)
+        return (int)cudaErrorInvalidValue;
     MergeCaps mc;
     mc.n_levels = n_levels;
     for (int l = 0; l < n_levels; ++l) mc.cap[l] = caps[l];
-    if (n_runs > 0) {
-        merge_rows_kernel<<<(unsigned)n_runs, 256, smem,
+    const size_t smem = sizeof(long long) * (size_t)(run + 1);
+
+    // Tiles per run: enough that the grid fills the card's resident
+    // thread blocks once, at least one word per thread each.
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, merge_rows_kernel,
+                                                  kThreads, smem);
+    const long long slots = (long long)sms * (per_sm > 0 ? per_sm : 1);
+    long long tiles = n_runs > 0 ? (slots + n_runs - 1) / n_runs : 1;
+    const long long most = (cap_out + kThreads - 1) / kThreads;
+    tiles = tiles < most ? tiles : most;
+    tiles = tiles > 1 ? tiles : 1;  // tile 0 writes the length and flag
+    const long long tile_words = (cap_out + tiles - 1) / tiles;
+    const long long grid = n_runs * tiles;
+    if (grid > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+    if (grid > 0) {
+        merge_rows_kernel<<<(unsigned)grid, kThreads, smem,
                             (cudaStream_t)stream>>>(
-            (const uint32_t*)X, (const int32_t*)L, n_rows, C_in, run, mc,
-            (uint32_t*)out, cap_out, (int32_t*)out_len, (int32_t*)overflow);
+            (const uint32_t*)X, (const int32_t*)L, n_rows, C_in, run,
+            (int)tiles, (int)tile_words, mc, (uint32_t*)out, cap_out,
+            (int32_t*)out_len, (int32_t*)overflow);
     }
     return (int)cudaGetLastError();
 }

@@ -3,64 +3,208 @@
 // Replaces tpuenc/entropy/pallas_pack.py:_pack_tile_kernel (body
 // _p1_tile_body; built by _build_pack_blocks_fn, entry scan_pack_blocks).
 // Per block it emits the DC difference item, then the AC items of the
-// band and the EOB (common.cuh's p1_block, shared with K8).  Output: words
-// (Bp, capB) MSB-aligned, zero past the length; lens (Bp,); and one
-// overflow flag, set exactly where the TPU kernel sets its own.  Padding
-// blocks (b >= n_blocks) have length 0.
+// band and the EOB: the bit string of common.cuh's p1_block (K8's body),
+// bit for bit.  Output: words (Bp, capB) MSB-aligned, zero past the
+// length; lens (Bp,); and one overflow flag, set exactly where the TPU
+// kernel sets its own.  Padding blocks (b >= n_blocks) have length 0.
 //
-// Bound on the card: the serial dependency of a bit writer, and latency.
-// A block is at most ~1.8 kbit and most are far shorter, so the work is
-// ~64 short steps of integer arithmetic per block.  Design: one thread per
-// block walks the 64 zigzag slots in order with a 64-bit accumulator.  The
-// coefficient reads are coalesced across the warp (row k of the (64, B)
-// input holds slot k of consecutive blocks), the slot loop is unrolled so
-// the coefficients and the window sums stay in registers, and the Huffman
-// tables are small enough to live in the L1 cache.
+// Bound on the card: bytes at the least (21.6 MB of coefficients read and
+// 12.8 MB of strings written at the flagship, 10.7 us), in practice the
+// instructions of ~64 serial slot steps per block, one thread per block.
+// The first design (p1_block writing each block's row straight to device
+// memory) spent them on divergent branches, about 90 instructions a slot;
+// its stores hit 32 rows capB x 4 bytes apart per warp, one sector per
+// lane, and its Huffman lookups were divergent gathers through L1.
+//
+// Design: each thread block packs a tile of kThreads consecutive blocks.
+// It stages the scan's AC tables (those the pattern names, <= 8 x 256
+// entries) and DC table rows (128) in shared memory and zeroes a
+// shared-memory tile of kThreads x capB words.  Each thread loads its
+// block's 64 coefficients into registers (row k of the (64, B) input holds
+// slot k of consecutive blocks, so each load is coalesced across the
+// warp) and walks the slots with a branch-free body (pack_block): every
+// slot's item is computed and selected, and its bits are appended to a
+// 32-bit word being filled, by funnel shifts, which a predicated store
+// puts in the thread's row of the tile when it fills.  The tile's rows are
+// consecutive rows of `words`, so once the block has synchronised, the
+// whole tile, zero tails included, goes out as one contiguous run of
+// 16-byte stores, consecutive across the threads.  cap_final is odd at
+// the budgets the encoder uses (19, 51, 65), so the threads' rows start on
+// different banks.
 
 #include "common.cuh"
 
 namespace {
 
-using tpuenc::BitWriter;
-
+constexpr int kThreads = 128;  // blocks per tile
 constexpr int kMaxPattern = 16;
+constexpr int kMaxTables = 8;
+constexpr int kDcEntries = 16 * kMaxTables;
 
 struct PackParams {
     int pat;                   // blocks per repeating table pattern
     int dc_tab[kMaxPattern];   // DC table id per pattern position
     int ac_tab[kMaxPattern];   // AC table id per pattern position
+    int n_ac;                  // AC tables staged: max(ac_tab) + 1
     int ss, se, emit_dc;       // spectral band [ss, se); DC item or not
     tpuenc::P1Caps caps;
 };
 
-__global__ void __launch_bounds__(128)
+// Appends an MSB-aligned item of len <= 32 bits (zero past len) to the
+// word being filled (`cur`, `nb` < 32 bits in it); a full word goes to
+// row[w] while w < cap, and w counts it either way.
+__device__ __forceinline__ void append(uint32_t word, int len, uint32_t& cur,
+                                       int& nb, int& w, uint32_t* row,
+                                       int cap) {
+    cur |= word >> nb;
+    const uint32_t spill = __funnelshift_lc(0u, word, 32 - nb);
+    nb += len;
+    const bool full = nb >= 32;
+    if (full && w < cap) row[w] = cur;
+    w += full;
+    cur = full ? spill : cur;
+    nb -= full ? 32 : 0;
+}
+
+// The block's bit string into `row` (cap_final words, zero beforehand) and
+// its length in bits, with p1_block's items, window sums and flag.  The
+// symbol (run & 15) << 4 | size stays below 256 (size 16 only sets a bit
+// the run's nibble already has), so it indexes the AC table directly.
+__device__ __forceinline__ int pack_block(const int (&c)[64], int32_t diff,
+                                          bool emit_dc, int ss, int se,
+                                          const uint32_t* dct,
+                                          const uint32_t* act,
+                                          const tpuenc::P1Caps& cp,
+                                          uint32_t* row, bool& ovf) {
+    using tpuenc::bit_length;
+    using tpuenc::mask32;
+    using tpuenc::shl32;
+    int last = -1;  // last nonzero slot of the band
+#pragma unroll
+    for (int k = 0; k < 64; ++k)
+        if (k >= ss && k < se && c[k] != 0) last = k;
+
+    const uint32_t zrl = act[0xF0];
+    const int zrl_len = (int)(zrl >> 16);
+    const uint32_t zrl_w = shl32(zrl & 0xFFFF, 32 - zrl_len);
+    const int cap = cp.cap_final;
+
+    uint32_t cur = 0;
+    int nb = 0;
+    int w = 0;
+    int s8 = 0, s16 = 0, s32 = 0, s64 = 0;
+    int prev = ss - 1;  // previous nonzero slot of the band
+#pragma unroll
+    for (int k = 0; k < 64; ++k) {
+        int len = 0;
+        uint32_t word = 0;
+        if (k == 0 && emit_dc) {
+            const int size = bit_length(diff < 0 ? 0u - (uint32_t)diff
+                                                  : (uint32_t)diff);
+            const uint32_t extra = (uint32_t)(diff - (diff < 0)) & mask32(size);
+            const uint32_t lut = size < 16 ? dct[size] : 0u;
+            len = (int)(lut >> 16) + size;
+            word = shl32(shl32(lut & 0xFFFF, size) | extra, 32 - len);
+        } else if (k >= ss && k < se) {
+            const int v = c[k];
+            const bool nz = v != 0;
+            const int run = k - prev - 1;
+            const int size = bit_length((uint32_t)(v < 0 ? -v : v));
+            const uint32_t extra = (uint32_t)(v + (v >> 31)) & ((1u << size) - 1u);
+            const uint32_t lut = nz ? act[((run & 15) << 4) | size] : 0u;
+            const int ilen = (int)(lut >> 16) + size;
+            // ilen is 0 only where v is 0; the funnel shift wraps 32 to 0.
+            const uint32_t iword = __funnelshift_l(
+                0u, ((lut & 0xFFFFu) << size) | extra, 32 - ilen);
+            const bool zrl_here = !nz && (run & 15) == 15 && k < last;
+            len = nz ? ilen : (zrl_here ? zrl_len : 0);
+            word = nz ? iword : (zrl_here ? zrl_w : 0u);
+            prev = nz ? k : prev;
+        }
+        append(word, len, cur, nb, w, row, cap);
+        s8 += len;
+        if ((k & 7) == 7) {
+            ovf |= s8 > 32 * cp.cap8;
+            s16 += s8;
+            s8 = 0;
+        }
+        if ((k & 15) == 15) {
+            ovf |= s16 > 32 * cp.cap16;
+            s32 += s16;
+            s16 = 0;
+        }
+        if ((k & 31) == 31) {
+            ovf |= s32 > 32 * cp.cap32;
+            s64 += s32;
+            s32 = 0;
+        }
+    }
+    ovf |= s64 > 32 * cp.cap64;
+
+    int total = s64;
+    if (last < se - 1) {
+        const uint32_t eob = act[0];
+        const int hs = min((int)(eob >> 16), 32);
+        append(shl32(eob & 0xFFFF, 32 - hs), hs, cur, nb, w, row, cap);
+        total += (int)(eob >> 16);
+    }
+    ovf |= total > 32 * cap;
+    if (nb > 0 && w < cap) row[w] = cur;
+    return total;
+}
+
+__global__ void __launch_bounds__(kThreads)
 pack_blocks_kernel(const int16_t* __restrict__ q, long long n_blocks,
                    long long Bp, const int32_t* __restrict__ dcdiff,
                    const uint32_t* __restrict__ dc_tab,
                    const uint32_t* __restrict__ ac_tab, PackParams p,
                    uint32_t* __restrict__ words, int32_t* __restrict__ lens,
                    int32_t* __restrict__ overflow) {
-    const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= Bp) return;
-    BitWriter bw;
-    bw.row = words + b * p.caps.cap_final;
-    bw.cap = p.caps.cap_final;
-    if (b >= n_blocks) {
-        bw.finish();
-        lens[b] = 0;
-        return;
-    }
-    const int pos = (int)(b % p.pat);
+    // [AC tables: n_ac x 256][DC rows: 128][tile: kThreads x capB]; every
+    // part starts on a 16-byte boundary.
+    extern __shared__ __align__(16) uint32_t smem[];
+    uint32_t* act = smem;
+    uint32_t* dct = act + 256 * p.n_ac;
+    uint32_t* tile = dct + kDcEntries;
+    const int t = threadIdx.x;
+    const int capB = p.caps.cap_final;
+    for (int i = t; i < 256 * p.n_ac; i += kThreads) act[i] = ac_tab[i];
+    for (int i = t; i < kDcEntries; i += kThreads) dct[i] = dc_tab[i];
+    uint4* tile4 = reinterpret_cast<uint4*>(tile);
+    for (int i = t; i < kThreads * capB / 4; i += kThreads)
+        tile4[i] = make_uint4(0, 0, 0, 0);
+    __syncthreads();
 
-    int c[64];
+    const long long b0 = (long long)blockIdx.x * kThreads;
+    const long long b = b0 + t;
+    if (b < n_blocks) {
+        const int pos = (int)(b % p.pat);
+        int c[64];
 #pragma unroll
-    for (int k = 0; k < 64; ++k) c[k] = q[k * n_blocks + b];
+        for (int k = 0; k < 64; ++k) c[k] = q[k * n_blocks + b];
+        bool ovf = false;
+        lens[b] = pack_block(c, p.emit_dc ? dcdiff[b] : 0, p.emit_dc, p.ss,
+                             p.se, dct + 16 * p.dc_tab[pos],
+                             act + 256 * p.ac_tab[pos], p.caps,
+                             tile + t * capB, ovf);
+        if (ovf) *overflow = 1;
+    } else if (b < Bp) {
+        lens[b] = 0;
+    }
+    __syncthreads();
 
-    bool ovf = false;
-    lens[b] = tpuenc::p1_block(c, p.emit_dc ? dcdiff[b] : 0, p.emit_dc, p.ss,
-                               p.se, dc_tab + 16 * p.dc_tab[pos],
-                               ac_tab + 256 * p.ac_tab[pos], p.caps, bw, ovf);
-    if (ovf) *overflow = 1;
+    // Rows [b0, b0 + rows) of `words` are tile[0, rows x capB); b0 x capB
+    // is a multiple of 4 words.
+    const long long rows = Bp - b0 < kThreads ? Bp - b0 : kThreads;
+    const int n = (int)rows * capB;
+    uint32_t* dst = words + b0 * capB;
+    int head = 0;  // words stored by the 16-byte stores
+    if ((reinterpret_cast<uintptr_t>(words) & 15) == 0) {
+        uint4* dst4 = reinterpret_cast<uint4*>(dst);
+        for (int i = t; i < n / 4; i += kThreads) dst4[i] = tile4[i];
+        head = n / 4 * 4;
+    }
+    for (int i = head + t; i < n; i += kThreads) dst[i] = tile[i];
 }
 
 }  // namespace
@@ -74,18 +218,27 @@ TPUENC_API int tpuenc_pack_blocks(const void* q, long long n_blocks,
     if (pat < 1 || pat > kMaxPattern) return (int)cudaErrorInvalidValue;
     PackParams p;
     p.pat = pat;
+    p.n_ac = 1;
     for (int i = 0; i < pat; ++i) {
         p.dc_tab[i] = pattern[i];
         p.ac_tab[i] = pattern[pat + i];
+        if (p.dc_tab[i] < 0 || p.dc_tab[i] >= kMaxTables || p.ac_tab[i] < 0 ||
+            p.ac_tab[i] >= kMaxTables)
+            return (int)cudaErrorInvalidValue;
+        p.n_ac = p.ac_tab[i] + 1 > p.n_ac ? p.ac_tab[i] + 1 : p.n_ac;
     }
     p.ss = ss;
     p.se = se;
     p.emit_dc = emit_dc;
     p.caps = {caps[0], caps[1], caps[2], caps[3], caps[4]};
+    // cap_final <= 65 (block_caps doubles from 1 six times), so the tables
+    // and the tile stay under the 48 KB a thread block may take by default.
+    const size_t smem = sizeof(uint32_t) *
+        ((size_t)256 * p.n_ac + kDcEntries + (size_t)kThreads * p.caps.cap_final);
+    if (p.caps.cap_final < 1 || smem > 48 * 1024) return (int)cudaErrorInvalidValue;
     if (Bp > 0) {
-        const int threads = 128;
-        const long long grid = (Bp + threads - 1) / threads;
-        pack_blocks_kernel<<<(unsigned)grid, threads, 0,
+        const long long grid = (Bp + kThreads - 1) / kThreads;
+        pack_blocks_kernel<<<(unsigned)grid, kThreads, smem,
                              (cudaStream_t)stream>>>(
             (const int16_t*)q, n_blocks, Bp, (const int32_t*)dcdiff,
             (const uint32_t*)dc_tab, (const uint32_t*)ac_tab, p,

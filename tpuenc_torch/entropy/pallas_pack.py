@@ -711,7 +711,8 @@ def _merge_rows(words, lens, run: int, n_runs: int, caps, cap_out: int):
     cuda_lib.check_tensor("lens", lens, torch.int32, (N,), dev)
     if run < 1 or run > 6000 or len(caps) > 24:
         raise ValueError(f"merge_rows: unsupported run {run} / {len(caps)} levels")
-    out = torch.zeros((n_runs, cap_out), dtype=torch.int32, device=dev)
+    # The kernel writes every output word, the zero tail included.
+    out = torch.empty((n_runs, cap_out), dtype=torch.int32, device=dev)
     out_len = torch.empty(n_runs, dtype=torch.int32, device=dev)
     ovf = torch.zeros(1, dtype=torch.int32, device=dev)
     lib = cuda_lib.library()
