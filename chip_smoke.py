@@ -19,12 +19,14 @@ Phases, each printing its own lines and its wall seconds:
    at budget rungs 5, 16 and 48, K5 at 5 and 16; K6 on the progressive
    luma stream with the 4-scan plan's three bands at block budgets 16 and
    48; K7 on the same stream and bands; K9 on its band (1, 64).
-   Bit-exact (tolerance 0), with the kernel's device time, the wrapper's
-   time and the plain version's (CUDA events, median of 10 warm runs; see
-   ``cuda_ms``), the K2-K4 lines also with the first designs' times from
-   PERF.md, and the kernel's bound: the bytes it must move (each input
-   read once, each output written once; bit strings read only up to their
-   lengths) over the H100's 3.35 TB/s;
+   Bit-exact (tolerance 0), with the kernel's time and the plain
+   version's, both timed the same way (CUDA events around the call with
+   the card idle, so the wrapper's host time is in it), the kernel's
+   device time (its call queued behind a spin; see ``cuda_ms``), the
+   K2-K4 lines also with PR 4's times from PERF.md (measured as ms is),
+   and the kernel's bound: the bytes it must move (each input read once,
+   each output written once; bit strings read only up to their lengths)
+   over the H100's 3.35 TB/s, with its share of the device time;
 4. the 26 frozen fixtures encoded on the card, byte for byte;
 5. the interleaved flagship, ``Encoder(90, device="cuda").encode(rgb,
    2000, 1800, ColorType.RGB)``: the same bytes as the CPU path, K1-K5
@@ -44,15 +46,8 @@ Phases, each printing its own lines and its wall seconds:
 
 It prints a JSON line of the kernels, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failure raises, so the
-exit code is not 0 and no result line is printed.
-
-    python3 chip_smoke.py --ab DIR
-
-times K2, K3 and K4 at the flagship's shapes (phase 3's cases, each way
-``cuda_ms`` has, and the kernel's own time from ``torch.profiler``) for
-the checkout in DIR and for this one, in turns (DIR, this, this, DIR),
-one child process each, and prints one JSON line per turn: the way to
-hold a kernel against an earlier version of it on one card.
+exit code is not 0 and no result line is printed.  ``kernel_ab.py`` holds
+K2-K4 against another checkout's on one card.
 """
 
 import json
@@ -218,11 +213,12 @@ def phase_build():
         shutil.rmtree(tmp)
 
 
-# The first designs of K2 (one thread per block writing its row to device
-# memory) and K3/K4 (one thread block per run, atomicOr scatter): their ms
-# in PERF.md section 6, CUDA events around the wrapper (``cuda_ms`` without
-# ``queued``), NVIDIA H100 80GB HBM3 at 700 W, two calls where both ran.
-FIRST_DESIGN_MS = {
+# PR 4's ms of the first designs of K2 (one thread per block writing its
+# row to device memory) and K3/K4 (one thread block per run, atomicOr
+# scatter), from PERF.md section 6: the measure of phase 3's "ms" (CUDA
+# events around the wrapper, ``cuda_ms`` without ``queued``), NVIDIA H100
+# 80GB HBM3 at 700 W, PR 4's calls 2 / 3 where both ran.
+PR4_MS = {
     "K2 pack_blocks budget 16": "0.1377 / 0.1115",
     "K2 pack_blocks budget 48": "0.2930",
     "K3 merge_chunks rung 5": "0.0825 / 0.0910",
@@ -233,7 +229,7 @@ FIRST_DESIGN_MS = {
 
 
 def flagship_inputs(dev):
-    """What phase 3 and ``--ab`` feed K2-K4: the packed tables, the
+    """What phase 3 and ``kernel_ab.py`` feed K2-K4: the packed tables, the
     interleaved scan's spec and (64, B) coefficient stream, its DC
     differences and Bp, with the pixels, layout and config they came from."""
     from tpuenc_torch import params_from_numpy
@@ -331,17 +327,17 @@ def phase_kernels(dev):
         err = max_abs_err(got, want)
         if err != 0:
             raise AssertionError(f"{key}: kernel differs from plain, max |err| {err}")
-        ms = cuda_ms(kernel, reps, queued=True)
-        wrapper_ms = cuda_ms(kernel, reps)
+        ms = cuda_ms(kernel, reps)
+        device_ms = cuda_ms(kernel, reps, queued=True)
         plain_ms = cuda_ms(plain, reps)
         bound = bound_ms(read_bytes, got)
-        first = FIRST_DESIGN_MS.get(key)
-        print(f"  {key:44s} max|err| {err}  kernel {ms:9.4f} ms "
-              f"(with its wrapper {wrapper_ms:9.4f} ms"
-              + (f"; first design {first} ms)" if first else ")")
-              + f"  plain {plain_ms:9.4f} ms  bound {bound:8.5f} ms "
-              f"({bound / ms:.1%} of it)")
-        results[key] = {"err": err, "ms": ms, "wrapper_ms": wrapper_ms,
+        pr4 = PR4_MS.get(key)
+        print(f"  {key:44s} max|err| {err}  kernel {ms:9.4f} ms"
+              + (f" (PR 4 {pr4} ms)" if pr4 else "")
+              + f"  plain {plain_ms:9.4f} ms ({plain_ms / ms:.1f}x)"
+              f"  device {device_ms:9.4f} ms  bound {bound:8.5f} ms "
+              f"({bound / device_ms:.1%} of device)")
+        results[key] = {"err": err, "ms": ms, "device_ms": device_ms,
                         "plain_ms": plain_ms, "bound": bound}
         return got
 
@@ -789,68 +785,7 @@ KERNELS = [
 ]
 
 
-def profiled_ms(fn, kernel_name, reps=10):
-    """The mean device time in ms of the kernels named ``kernel_name`` over
-    ``reps`` warm calls of ``fn``, from ``torch.profiler``; None where the
-    profiler did not see each launch."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us, count = 0.0, 0
-    for ev in prof.key_averages():
-        if kernel_name in ev.key:
-            us += getattr(ev, "self_device_time_total", None) or \
-                getattr(ev, "self_cuda_time_total", 0.0)
-            count += ev.count
-    return us / count / 1e3 if count == reps else None
-
-
-def ab_times(dev):
-    """One turn of ``--ab``: phase 3's K2-K4 cases on this process's
-    ``tpuenc_torch``, each timed three ways, as one JSON line."""
-    from tpuenc_torch import cuda_lib
-
-    inputs = flagship_inputs(dev)[:5]
-    out = {"checkout": os.path.dirname(os.path.dirname(cuda_lib.__file__)),
-           "card": card_line()}
-    for key, kernel, _, read_bytes in p1_merge_cases(*inputs):
-        got = kernel()
-        out[key] = {
-            "ms": cuda_ms(kernel, queued=True),
-            "wrapper_ms": cuda_ms(kernel),
-            "profiler_ms": profiled_ms(kernel, "pack_blocks_kernel"
-                                       if key.startswith("K2")
-                                       else "merge_rows_kernel"),
-            "bound_ms": bound_ms(read_bytes, got),
-        }
-    print(json.dumps(out), flush=True)
-
-
-def ab(other):
-    """``--ab DIR``: turns of ``ab_times`` in child processes, DIR's
-    checkout and this one in the order DIR, this, this, DIR."""
-    other = os.path.abspath(other)
-    for checkout in (other, HERE, HERE, other):
-        subprocess.run([sys.executable, os.path.join(HERE, "chip_smoke.py"),
-                        "--ab-turn", checkout], check=True)
-
-
 def main():
-    if len(sys.argv) == 3 and sys.argv[1] == "--ab":
-        return ab(sys.argv[2])
-    if len(sys.argv) == 3 and sys.argv[1] == "--ab-turn":
-        # Import tpuenc_torch from that checkout, ahead of this one.
-        sys.path.insert(0, sys.argv[2])
-        if not torch.cuda.is_available():
-            raise RuntimeError("torch.cuda.is_available() is false: no GPU")
-        return ab_times(torch.device("cuda:0"))
-    if len(sys.argv) != 1:
-        raise SystemExit(__doc__)
     dev = torch.device("cuda:0")
     flagship = {}
 
@@ -888,10 +823,11 @@ def main():
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
-            # ms: the kernel's device time (cuda_ms queued); wrapper_ms:
-            # with the wrapper's host time, as the card's caller sees it.
+            # ms and plain_ms: the call with the card idle, the wrapper's
+            # host time in it, as the caller sees it; device_ms: the kernel
+            # and its wrapper's small fills alone (cuda_ms queued).
             "max_abs_err": max(errs), "ms": r["ms"],
-            "wrapper_ms": r["wrapper_ms"], "plain_ms": r["plain_ms"],
+            "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             # Integer work, no matrix product: the bytes bound it.
             "bound_ms": r["bound"], "bound_by": "bytes",
             # No single PyTorch call computes any of these functions.

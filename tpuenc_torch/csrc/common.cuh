@@ -45,7 +45,7 @@ __device__ __forceinline__ void or_at(uint32_t* row, long long cap,
 }
 
 // Serial writer of one block's bit string into its own row of `cap`
-// words (K2, K6): items are appended MSB first through a 64-bit
+// words (K6, K8): items are appended MSB first through a 64-bit
 // accumulator; words past the capacity are dropped (the overflow flags
 // report that case) and finish() zero-fills the rest of the row.
 struct BitWriter {
@@ -205,7 +205,7 @@ __device__ __forceinline__ void quantize_zigzag(
 }
 
 // ---------------------------------------------------------------------------
-// P1 of one block (K2, K8): the body of pallas_pack._p1_tile_body.
+// P1 of one block (K8): the body of pallas_pack._p1_tile_body.
 // ---------------------------------------------------------------------------
 
 struct P1Caps {
@@ -296,6 +296,114 @@ __device__ __forceinline__ int p1_block(const int (&c)[64], int32_t diff,
     }
     ovf |= total > 32 * cp.cap_final;
     bw.finish();
+    return total;
+}
+
+// ---------------------------------------------------------------------------
+// P1 of one block without branches (K2): p1_block's bit string, window sums
+// and flag, written into a row that is zero beforehand.  K8 still runs
+// p1_block; its redesign moves it to pack_block, so one P1 body is kept.
+// ---------------------------------------------------------------------------
+
+// Appends an MSB-aligned item of len <= 32 bits (zero past len) to the
+// word being filled (`cur`, `nb` < 32 bits in it); a full word goes to
+// row[w] while w < cap, and w counts it either way.
+__device__ __forceinline__ void append(uint32_t word, int len, uint32_t& cur,
+                                       int& nb, int& w, uint32_t* row,
+                                       int cap) {
+    cur |= word >> nb;
+    const uint32_t spill = __funnelshift_lc(0u, word, 32 - nb);
+    nb += len;
+    const bool full = nb >= 32;
+    if (full && w < cap) row[w] = cur;
+    w += full;
+    cur = full ? spill : cur;
+    nb -= full ? 32 : 0;
+}
+
+// The block's bit string into `row` (cap_final words, zero beforehand) and
+// its length in bits, with p1_block's items, window sums and flag.  Every
+// slot's item is computed and selected, and its bits are appended to a
+// 32-bit word by funnel shifts.  The symbol (run & 15) << 4 | size stays
+// below 256 (size 16 only sets a bit the run's nibble already has), so it
+// indexes the AC table directly.
+__device__ __forceinline__ int pack_block(const int (&c)[64], int32_t diff,
+                                          bool emit_dc, int ss, int se,
+                                          const uint32_t* dct,
+                                          const uint32_t* act,
+                                          const P1Caps& cp, uint32_t* row,
+                                          bool& ovf) {
+    int last = -1;  // last nonzero slot of the band
+#pragma unroll
+    for (int k = 0; k < 64; ++k)
+        if (k >= ss && k < se && c[k] != 0) last = k;
+
+    const uint32_t zrl = act[0xF0];
+    const int zrl_len = (int)(zrl >> 16);
+    const uint32_t zrl_w = shl32(zrl & 0xFFFF, 32 - zrl_len);
+    const int cap = cp.cap_final;
+
+    uint32_t cur = 0;
+    int nb = 0;
+    int w = 0;
+    int s8 = 0, s16 = 0, s32 = 0, s64 = 0;
+    int prev = ss - 1;  // previous nonzero slot of the band
+#pragma unroll
+    for (int k = 0; k < 64; ++k) {
+        int len = 0;
+        uint32_t word = 0;
+        if (k == 0 && emit_dc) {
+            const int size = bit_length(diff < 0 ? 0u - (uint32_t)diff
+                                                  : (uint32_t)diff);
+            const uint32_t extra = (uint32_t)(diff - (diff < 0)) & mask32(size);
+            const uint32_t lut = size < 16 ? dct[size] : 0u;
+            len = (int)(lut >> 16) + size;
+            word = shl32(shl32(lut & 0xFFFF, size) | extra, 32 - len);
+        } else if (k >= ss && k < se) {
+            const int v = c[k];
+            const bool nz = v != 0;
+            const int run = k - prev - 1;
+            const int size = bit_length((uint32_t)(v < 0 ? -v : v));
+            const uint32_t extra = (uint32_t)(v + (v >> 31)) & ((1u << size) - 1u);
+            const uint32_t lut = nz ? act[((run & 15) << 4) | size] : 0u;
+            const int ilen = (int)(lut >> 16) + size;
+            // ilen is 0 only where v is 0; the funnel shift wraps 32 to 0.
+            const uint32_t iword = __funnelshift_l(
+                0u, ((lut & 0xFFFFu) << size) | extra, 32 - ilen);
+            const bool zrl_here = !nz && (run & 15) == 15 && k < last;
+            len = nz ? ilen : (zrl_here ? zrl_len : 0);
+            word = nz ? iword : (zrl_here ? zrl_w : 0u);
+            prev = nz ? k : prev;
+        }
+        append(word, len, cur, nb, w, row, cap);
+        s8 += len;
+        if ((k & 7) == 7) {
+            ovf |= s8 > 32 * cp.cap8;
+            s16 += s8;
+            s8 = 0;
+        }
+        if ((k & 15) == 15) {
+            ovf |= s16 > 32 * cp.cap16;
+            s32 += s16;
+            s16 = 0;
+        }
+        if ((k & 31) == 31) {
+            ovf |= s32 > 32 * cp.cap32;
+            s64 += s32;
+            s32 = 0;
+        }
+    }
+    ovf |= s64 > 32 * cp.cap64;
+
+    int total = s64;
+    if (last < se - 1) {
+        const uint32_t eob = act[0];
+        const int hs = min((int)(eob >> 16), 32);
+        append(shl32(eob & 0xFFFF, 32 - hs), hs, cur, nb, w, row, cap);
+        total += (int)(eob >> 16);
+    }
+    ovf |= total > 32 * cap;
+    if (nb > 0 && w < cap) row[w] = cur;
     return total;
 }
 

@@ -24,7 +24,8 @@
 //
 // Design: a gather.  The grid covers (run, tile of output words), with as
 // many tiles per run as fill the card's resident thread blocks once (P3's
-// 128 runs of 10,496 words become ~1,000 thread blocks, not 128).  Each
+// 128 runs of 10,496 words become ~1,000 thread blocks, not 128; the SM
+// count and shared memory that decide it are asked once per device).  Each
 // thread block loads its run's lengths into shared memory and turns them
 // into the prefix with a block-wide scan: each thread sums a contiguous
 // segment, warp shuffles scan the segment sums, one warp scans the warp
@@ -40,6 +41,8 @@
 // bits, so the OR is the concatenation.  No atomics, no thread walks a
 // run.
 
+#include <mutex>
+
 #include "common.cuh"
 
 namespace {
@@ -47,8 +50,11 @@ namespace {
 constexpr int kMaxLevels = 24;
 constexpr int kMaxRun = 6000;  // (kMaxRun + 1) x 8 bytes of prefix < 48 KB
 constexpr int kThreads = 256;
-constexpr int kMinBlocks = 8;  // per SM: 32 registers a thread
+// Resident thread blocks per SM at most: 2048 threads an SM, which the
+// launch bounds' 32 registers a thread allow.
+constexpr int kMinBlocks = 8;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxDevices = 64;
 
 struct MergeCaps {
     int n_levels;
@@ -189,6 +195,34 @@ merge_rows_kernel(const uint32_t* __restrict__ X,
     }
 }
 
+// What the tile count needs of a card, asked once per device: its SMs, the
+// shared memory of one SM, what the runtime reserves of it per thread
+// block, and the kernel's static shared memory.
+struct CardLimits {
+    int sms = 0;
+    int smem_per_sm = 0;
+    int reserved_per_block = 0;
+    int static_smem = 0;
+};
+
+const CardLimits* card_limits(int dev) {
+    static CardLimits limits[kMaxDevices];
+    static std::once_flag once[kMaxDevices];
+    if (dev < 0 || dev >= kMaxDevices) return nullptr;
+    std::call_once(once[dev], [dev] {
+        CardLimits& c = limits[dev];
+        cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, dev);
+        cudaDeviceGetAttribute(&c.smem_per_sm,
+                               cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+        cudaDeviceGetAttribute(&c.reserved_per_block,
+                               cudaDevAttrReservedSharedMemoryPerBlock, dev);
+        cudaFuncAttributes fa;
+        if (cudaFuncGetAttributes(&fa, merge_rows_kernel) == cudaSuccess)
+            c.static_smem = (int)fa.sharedSizeBytes;
+    });
+    return &limits[dev];
+}
+
 }  // namespace
 
 TPUENC_API int tpuenc_merge_rows(const void* X, const void* L,
@@ -205,13 +239,17 @@ TPUENC_API int tpuenc_merge_rows(const void* X, const void* L,
     const size_t smem = sizeof(long long) * (size_t)(run + 1);
 
     // Tiles per run: enough that the grid fills the card's resident
-    // thread blocks once, at least one word per thread each.
-    int dev = 0, sms = 0, per_sm = 0;
+    // thread blocks once, at least one word per thread each.  A thread
+    // block holds its prefix, the static part and the runtime's reserve.
+    int dev = 0;
     cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, merge_rows_kernel,
-                                                  kThreads, smem);
-    const long long slots = (long long)sms * (per_sm > 0 ? per_sm : 1);
+    const CardLimits* card = card_limits(dev);
+    if (card == nullptr) return (int)cudaErrorInvalidDevice;
+    const long long per_block =
+        (long long)smem + card->static_smem + card->reserved_per_block;
+    long long per_sm = card->smem_per_sm / per_block;
+    per_sm = per_sm < kMinBlocks ? per_sm : kMinBlocks;
+    const long long slots = (long long)card->sms * (per_sm > 0 ? per_sm : 1);
     long long tiles = n_runs > 0 ? (slots + n_runs - 1) / n_runs : 1;
     const long long most = (cap_out + kThreads - 1) / kThreads;
     tiles = tiles < most ? tiles : most;

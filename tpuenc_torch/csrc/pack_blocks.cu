@@ -22,10 +22,10 @@
 // shared-memory tile of kThreads x capB words.  Each thread loads its
 // block's 64 coefficients into registers (row k of the (64, B) input holds
 // slot k of consecutive blocks, so each load is coalesced across the
-// warp) and walks the slots with a branch-free body (pack_block): every
-// slot's item is computed and selected, and its bits are appended to a
-// 32-bit word being filled, by funnel shifts, which a predicated store
-// puts in the thread's row of the tile when it fills.  The tile's rows are
+// warp) and walks the slots with common.cuh's branch-free body
+// (pack_block): every slot's item is computed and selected, and its bits
+// are appended to a 32-bit word being filled, by funnel shifts, which a
+// predicated store puts in the thread's row of the tile when it fills.  The tile's rows are
 // consecutive rows of `words`, so once the block has synchronised, the
 // whole tile, zero tails included, goes out as one contiguous run of
 // 16-byte stores, consecutive across the threads.  cap_final is odd at
@@ -49,109 +49,6 @@ struct PackParams {
     int ss, se, emit_dc;       // spectral band [ss, se); DC item or not
     tpuenc::P1Caps caps;
 };
-
-// Appends an MSB-aligned item of len <= 32 bits (zero past len) to the
-// word being filled (`cur`, `nb` < 32 bits in it); a full word goes to
-// row[w] while w < cap, and w counts it either way.
-__device__ __forceinline__ void append(uint32_t word, int len, uint32_t& cur,
-                                       int& nb, int& w, uint32_t* row,
-                                       int cap) {
-    cur |= word >> nb;
-    const uint32_t spill = __funnelshift_lc(0u, word, 32 - nb);
-    nb += len;
-    const bool full = nb >= 32;
-    if (full && w < cap) row[w] = cur;
-    w += full;
-    cur = full ? spill : cur;
-    nb -= full ? 32 : 0;
-}
-
-// The block's bit string into `row` (cap_final words, zero beforehand) and
-// its length in bits, with p1_block's items, window sums and flag.  The
-// symbol (run & 15) << 4 | size stays below 256 (size 16 only sets a bit
-// the run's nibble already has), so it indexes the AC table directly.
-__device__ __forceinline__ int pack_block(const int (&c)[64], int32_t diff,
-                                          bool emit_dc, int ss, int se,
-                                          const uint32_t* dct,
-                                          const uint32_t* act,
-                                          const tpuenc::P1Caps& cp,
-                                          uint32_t* row, bool& ovf) {
-    using tpuenc::bit_length;
-    using tpuenc::mask32;
-    using tpuenc::shl32;
-    int last = -1;  // last nonzero slot of the band
-#pragma unroll
-    for (int k = 0; k < 64; ++k)
-        if (k >= ss && k < se && c[k] != 0) last = k;
-
-    const uint32_t zrl = act[0xF0];
-    const int zrl_len = (int)(zrl >> 16);
-    const uint32_t zrl_w = shl32(zrl & 0xFFFF, 32 - zrl_len);
-    const int cap = cp.cap_final;
-
-    uint32_t cur = 0;
-    int nb = 0;
-    int w = 0;
-    int s8 = 0, s16 = 0, s32 = 0, s64 = 0;
-    int prev = ss - 1;  // previous nonzero slot of the band
-#pragma unroll
-    for (int k = 0; k < 64; ++k) {
-        int len = 0;
-        uint32_t word = 0;
-        if (k == 0 && emit_dc) {
-            const int size = bit_length(diff < 0 ? 0u - (uint32_t)diff
-                                                  : (uint32_t)diff);
-            const uint32_t extra = (uint32_t)(diff - (diff < 0)) & mask32(size);
-            const uint32_t lut = size < 16 ? dct[size] : 0u;
-            len = (int)(lut >> 16) + size;
-            word = shl32(shl32(lut & 0xFFFF, size) | extra, 32 - len);
-        } else if (k >= ss && k < se) {
-            const int v = c[k];
-            const bool nz = v != 0;
-            const int run = k - prev - 1;
-            const int size = bit_length((uint32_t)(v < 0 ? -v : v));
-            const uint32_t extra = (uint32_t)(v + (v >> 31)) & ((1u << size) - 1u);
-            const uint32_t lut = nz ? act[((run & 15) << 4) | size] : 0u;
-            const int ilen = (int)(lut >> 16) + size;
-            // ilen is 0 only where v is 0; the funnel shift wraps 32 to 0.
-            const uint32_t iword = __funnelshift_l(
-                0u, ((lut & 0xFFFFu) << size) | extra, 32 - ilen);
-            const bool zrl_here = !nz && (run & 15) == 15 && k < last;
-            len = nz ? ilen : (zrl_here ? zrl_len : 0);
-            word = nz ? iword : (zrl_here ? zrl_w : 0u);
-            prev = nz ? k : prev;
-        }
-        append(word, len, cur, nb, w, row, cap);
-        s8 += len;
-        if ((k & 7) == 7) {
-            ovf |= s8 > 32 * cp.cap8;
-            s16 += s8;
-            s8 = 0;
-        }
-        if ((k & 15) == 15) {
-            ovf |= s16 > 32 * cp.cap16;
-            s32 += s16;
-            s16 = 0;
-        }
-        if ((k & 31) == 31) {
-            ovf |= s32 > 32 * cp.cap32;
-            s64 += s32;
-            s32 = 0;
-        }
-    }
-    ovf |= s64 > 32 * cp.cap64;
-
-    int total = s64;
-    if (last < se - 1) {
-        const uint32_t eob = act[0];
-        const int hs = min((int)(eob >> 16), 32);
-        append(shl32(eob & 0xFFFF, 32 - hs), hs, cur, nb, w, row, cap);
-        total += (int)(eob >> 16);
-    }
-    ovf |= total > 32 * cap;
-    if (nb > 0 && w < cap) row[w] = cur;
-    return total;
-}
 
 __global__ void __launch_bounds__(kThreads)
 pack_blocks_kernel(const int16_t* __restrict__ q, long long n_blocks,
@@ -183,10 +80,10 @@ pack_blocks_kernel(const int16_t* __restrict__ q, long long n_blocks,
 #pragma unroll
         for (int k = 0; k < 64; ++k) c[k] = q[k * n_blocks + b];
         bool ovf = false;
-        lens[b] = pack_block(c, p.emit_dc ? dcdiff[b] : 0, p.emit_dc, p.ss,
-                             p.se, dct + 16 * p.dc_tab[pos],
-                             act + 256 * p.ac_tab[pos], p.caps,
-                             tile + t * capB, ovf);
+        lens[b] = tpuenc::pack_block(c, p.emit_dc ? dcdiff[b] : 0, p.emit_dc,
+                                     p.ss, p.se, dct + 16 * p.dc_tab[pos],
+                                     act + 256 * p.ac_tab[pos], p.caps,
+                                     tile + t * capB, ovf);
         if (ovf) *overflow = 1;
     } else if (b < Bp) {
         lens[b] = 0;
