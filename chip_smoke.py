@@ -9,24 +9,26 @@ Phases, each printing its own lines and its wall seconds:
 2. build the CUDA kernels from ``tpuenc_torch/csrc`` (one nvcc per source,
    all started together) and time the build; beside it, ``nvcc -Xptxas -v``
    reports the registers, stack, spills and static shared memory of K1, K2,
-   K3/K4 and K8;
+   K3/K4, K5 and K8;
 3. each kernel (K1-K9) against its plain PyTorch version on the same CUDA
    tensors, at the flagship's shapes (2000x1800 RGB, 56,250 blocks per
    component): K1 on the luma plane; K2 on the interleaved stream at block
    budgets 16 and 48; K8 on the interleaved sample stream at the same
    budgets, and on a 3840x2160 q80 4:2:0 image with restart interval 64
-   at budget 16, each also equal to K1 -> DC differences -> K2; K3 and K4
-   at budget rungs 5, 16 and 48, K5 at 5 and 16; K6 on the progressive
-   luma stream with the 4-scan plan's three bands at block budgets 16 and
-   48; K7 on the same stream and bands; K9 on its band (1, 64).
-   Bit-exact (tolerance 0), with the kernel's time and the plain
-   version's, both timed the same way (CUDA events around the call with
-   the card idle, so the wrapper's host time is in it), the kernel's
-   device time (its call queued behind a spin; see ``cuda_ms``), the
-   K2-K4 lines also with PR 4's times from PERF.md (measured as ms is),
-   and the kernel's bound: the bytes it must move (each input read once,
-   each output written once; bit strings read only up to their lengths)
-   over the H100's 3.35 TB/s, with its share of the device time;
+   at budget 16, each also equal to K1 -> DC differences -> K2, with its
+   dynamic shared memory; K3 and K4 at budget rungs 5, 16 and 48, K5 at 5
+   and 16 and on synthetic rows of the no-P3 shape at the whole-image
+   limit; K6 on the progressive luma stream with the 4-scan plan's three
+   bands at block budgets 16 and 48; K7 on the same stream and bands; K9
+   on its band (1, 64).  Bit-exact (tolerance 0), with the kernel's time
+   and the plain version's, both timed the same way (CUDA events around
+   the call with the card idle, so the wrapper's host time is in it), the
+   kernel's device time (its call queued behind a spin; see ``cuda_ms``),
+   the K2-K4 lines also with their first designs' times and the K5 and K8
+   lines with the device times of the designs they replaced, from
+   PERF.md, and the kernel's bound: the bytes it must move (each input
+   read once, each output written once; bit strings read only up to their
+   lengths) over the H100's 3.35 TB/s, with its share of the device time;
 4. the 26 frozen fixtures encoded on the card, byte for byte;
 5. the interleaved flagship, ``Encoder(90, device="cuda").encode(rgb,
    2000, 1800, ColorType.RGB)``: the same bytes as the CPU path, K1-K5
@@ -47,7 +49,7 @@ Phases, each printing its own lines and its wall seconds:
 It prints a JSON line of the kernels, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failure raises, so the
 exit code is not 0 and no result line is printed.  ``kernel_ab.py`` holds
-K2-K4 against another checkout's on one card.
+K2-K5 and K8 against another checkout's on one card.
 """
 
 import json
@@ -171,14 +173,15 @@ def phase_env():
 
 
 PTXAS_REPORTED = ("fdct_quantize.cu", "pack_blocks.cu", "merge_rows.cu",
-                  "fused_sample_pack.cu")
+                  "concat_rows.cu", "fused_sample_pack.cu")
 
 
 def phase_build():
     """The library build, and beside it one ``-Xptxas -v`` compile of each
-    of K1, K2, K3/K4 and K8 for their registers, stack, spills and static
-    shared memory (K2's tile and K3/K4's prefix are dynamic shared memory,
-    sized at launch, which ptxas does not see)."""
+    of K1, K2, K3/K4, K5 and K8 for their registers, stack, spills and
+    static shared memory (K2's and K8's tiles and K3/K4's prefix are
+    dynamic shared memory, sized at launch, which ptxas does not see;
+    phase 3 prints K8's)."""
     import tempfile
 
     from tpuenc_torch import cuda_lib
@@ -225,6 +228,18 @@ PR4_MS = {
     "K3 merge_chunks rung 16": "0.0988",
     "K4 fold_rows rung 5": "0.0622 / 0.0533",
     "K4 fold_rows rung 16": "0.0867",
+}
+
+# Device ms of the designs K5 (one thread block per row, atomicOr into a
+# zero-filled output) and K8 (a serial bit writer storing each block's row
+# to device memory) replaced, from PERF.md section 6: the measure of phase
+# 3's device time (``cuda_ms`` queued), NVIDIA H100 80GB HBM3 at 700 W.
+REPLACED_DEVICE_MS = {
+    "K5 concat_rows rung 5": "0.0140",
+    "K5 concat_rows rung 16": "0.0170",
+    "K8 fused_sample_pack budget 16": "0.0839",
+    "K8 fused_sample_pack budget 48": "0.1901",
+    "K8 fused_sample_pack 4K 4:2:0 restart 64 budget 16": "0.0982",
 }
 
 
@@ -296,28 +311,141 @@ def p1_merge_cases(params, spec, stream, dcdiff, Bp):
             string_bytes(row_bits) + nbytes(row_bits)
 
 
-def phase_kernels(dev):
-    """Each kernel against its plain version on the flagship's tensors."""
+def uhd_inputs(dev):
+    """BASELINE.md's "4:2:0 restart64 4K" scan (3840x2160 q80): its
+    params, spec, quantizer pattern, (64, B) samples and coefficients, and
+    Bp."""
     from tpuenc_torch import params_from_numpy
     from tpuenc_torch.core.tables import default_tables, quantization_table
     from tpuenc_torch.core.types import ColorType, EncoderConfig, SamplingFactor
     from tpuenc_torch.entropy import device_encode as de
+    from tpuenc_torch.kernels import pipeline
+
+    config = EncoderConfig(quality=80, sampling_factor=SamplingFactor.F_2_2,
+                           restart_interval=64)
+    q_tables = [quantization_table("default", 80, True),
+                quantization_table("default", 80, False)]
+    huffman = [list(p) for p in default_tables()]
+    params = params_from_numpy(q_tables, *de.tables_to_arrays(huffman), dev)
+    px = torch.from_numpy(make_rgb(UHD_W, UHD_H)).to(dev)
+    layout = pipeline.scan_layout(UHD_W, UHD_H, ColorType.RGB, config)
+    ((_, spec, _),) = de.build_scan_plan(layout, layout["components"], config)
+    samples = pipeline.fn_cm_samples(px, UHD_W, UHD_H, ColorType.RGB, config)
+    (stream,) = pipeline.fn_cm(px, UHD_W, UHD_H, ColorType.RGB, config,
+                               params.reciprocals, params.corrections)
+    Bp = -(-samples.shape[1] // 512) * 512
+    return params, spec, de.qtab_pattern(layout), samples, stream, Bp
+
+
+# The no-P3 shape of K5 at the whole-image limit (api.py's 3,000,000
+# blocks): P2's 128 x n2 rows, n2 = ceil(ceil(Bp / 128) / 256) = 92, of
+# its rung-5 cap, each row 256 blocks of 109-146 bits (the flagship's mean
+# at rung 5 is 137); 2% of the rows empty.
+NO_P3_ROWS = 128 * 92
+
+
+def no_p3_rows(dev, seed=7):
+    """Synthetic P2 rows of the no-P3 shape, made on the card from
+    ``seed``: (rows int32 (R, W) zero past their lengths, bits int32
+    (R,))."""
+    from tpuenc_torch.entropy import pallas_pack as pk
+
+    W = pk.chunk_caps(pk.final_block_cap(16), 256, 5)[-1]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bits = torch.randint(256 * 109, 256 * 146, (NO_P3_ROWS,), generator=g,
+                         device=dev, dtype=torch.int32).clamp(max=32 * W)
+    bits[torch.rand(NO_P3_ROWS, generator=g, device=dev) < 0.02] = 0
+    words = torch.randint(-2**31, 2**31, (NO_P3_ROWS, W), generator=g,
+                          device=dev, dtype=torch.int64)
+    have = (bits[:, None].to(torch.int64)
+            - 32 * torch.arange(W, device=dev)[None, :]).clamp(0, 32)
+    keep = torch.where(have >= 32, 0xFFFFFFFF, ((1 << have) - 1) << (32 - have))
+    rows = (words & keep).to(torch.int32)
+    return rows, bits
+
+
+def fused_concat_cases(dev, params, spec, stream, dcdiff, Bp, px, layout,
+                       config, log=print):
+    """Phase 3's K8 and K5 cases: yields ``(key, kernel, plain,
+    read_bytes, split)`` in order.  K8 on the flagship's interleaved
+    samples at block budgets 16 and 48 and on the 4K 4:2:0 restart-64
+    scan at 16, ``split`` giving K1 -> DC differences -> K2 of the same
+    blocks; K5 on K4's rows at budget rungs 5 and 16, and on synthetic
+    rows of the no-P3 shape (``no_p3_rows``); ``split`` None.  Each
+    input's shape goes to ``log``."""
+    from tpuenc_torch.core.types import ColorType
+    from tpuenc_torch.entropy import device_encode as de
+    from tpuenc_torch.entropy import pallas_pack as pk
+    from tpuenc_torch.kernels import pipeline
+
+    tables = nbytes(params.dc, params.ac)
+    quant = nbytes(params.reciprocals, params.corrections)
+    samples = pipeline.fn_cm_samples(px, FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB,
+                                     config)
+    qtabs = de.qtab_pattern(layout)
+    for bb in (16, 48):
+        args = (samples, spec, qtabs, params.reciprocals, params.corrections,
+                params.dc, params.ac, Bp, bb)
+        yield f"K8 fused_sample_pack budget {bb}", \
+            lambda a=args: pk.fused_sample_pack(*a), \
+            lambda a=args: pk.fused_sample_pack_ref(*a), \
+            nbytes(samples) + quant + tables, \
+            lambda bb=bb: pk.pack_blocks(stream, dcdiff, params.dc, params.ac,
+                                         spec, Bp, bb)
+
+    # The 4K 4:2:0 image with restart interval 64: 384-block segments
+    # whose starts fall inside thread blocks and on their edges.
+    uparams, uspec, uqtabs, usamples, ustream, uBp = uhd_inputs(dev)
+    log(f"  4K 4:2:0 stream: {usamples.shape[1]} blocks, padded to {uBp}, "
+          f"pattern {len(uqtabs)}, segments of {uspec.seg_blocks} blocks")
+    uargs = (usamples, uspec, uqtabs, uparams.reciprocals,
+             uparams.corrections, uparams.dc, uparams.ac, uBp, 16)
+    yield "K8 fused_sample_pack 4K 4:2:0 restart 64 budget 16", \
+        lambda: pk.fused_sample_pack(*uargs), \
+        lambda: pk.fused_sample_pack_ref(*uargs), \
+        nbytes(usamples) + quant + tables, \
+        lambda: pk.scan_pack_blocks(ustream, uspec, uparams.dc, uparams.ac, 16)
+
+    # K5 on K4's rows: P2 and P3 of the rung's plan on K2's strings at
+    # block budget max(rung, 16) = 16.
+    words, lens, _ = pk.pack_blocks(stream, dcdiff, params.dc, params.ac, spec,
+                                    Bp, 16)
+    n_sub = 128
+    for rung in (5, 16):
+        chunk, n2, caps, caps_f = pk.merge_plan(Bp, words.shape[1], rung, n_sub)
+        rows, row_bits, _ = pk.merge_chunks(words, lens, chunk, n_sub * n2,
+                                            caps, caps[-1])
+        frows, fbits, _ = pk.fold_rows(rows, row_bits, n2, n_sub, caps_f,
+                                       caps_f[-1])
+        pos = torch.cumsum(fbits.to(torch.int64), 0) - fbits
+        capW = -(-(n_sub * caps_f[-1] + caps_f[-1] + 256) // 128) * 128
+        args = (frows, pos, fbits, capW)
+        yield f"K5 concat_rows rung {rung}", \
+            lambda a=args: pk.concat_rows(*a), \
+            lambda a=args: pk.concat_rows_ref(*a), \
+            string_bytes(fbits) + nbytes(pos, fbits), None
+
+    rows, bits = no_p3_rows(dev)
+    R, W = rows.shape
+    pos = torch.cumsum(bits.to(torch.int64), 0) - bits
+    capW = -(-(R * W + W + 256) // 128) * 128
+    log(f"  K5 no-P3 shape: {R} rows of {W} words, capW {capW}")
+    args = (rows, pos, bits, capW)
+    yield f"K5 concat_rows no-P3 {R} rows", \
+        lambda: pk.concat_rows(*args), \
+        lambda: pk.concat_rows_ref(*args), \
+        string_bytes(bits) + nbytes(pos, bits), None
+
+def phase_kernels(dev):
+    """Each kernel against its plain version on the flagship's tensors."""
+    from tpuenc_torch.core.types import ColorType
     from tpuenc_torch.entropy import pallas_hist as ph
     from tpuenc_torch.entropy import pallas_pack as pk
     from tpuenc_torch.entropy.huffopt import progressive_bands
     from tpuenc_torch.kernels import pallas_fdct, pipeline
     from tpuenc_torch.kernels.color_convert import to_planes
 
-    huffman = [list(p) for p in default_tables()]
-
-    def encode_params(quality):
-        q_tables = [quantization_table("default", quality, True),
-                    quantization_table("default", quality, False)]
-        return params_from_numpy(q_tables, *de.tables_to_arrays(huffman), dev)
-
     params, spec, stream, dcdiff, Bp, px, layout, config = flagship_inputs(dev)
-    tables = nbytes(params.dc, params.ac)
-
     results = {}
 
     def check(key, kernel, plain, read_bytes, reps=10):
@@ -332,11 +460,13 @@ def phase_kernels(dev):
         plain_ms = cuda_ms(plain, reps)
         bound = bound_ms(read_bytes, got)
         pr4 = PR4_MS.get(key)
+        before = REPLACED_DEVICE_MS.get(key)
         print(f"  {key:44s} max|err| {err}  kernel {ms:9.4f} ms"
               + (f" (PR 4 {pr4} ms)" if pr4 else "")
               + f"  plain {plain_ms:9.4f} ms ({plain_ms / ms:.1f}x)"
-              f"  device {device_ms:9.4f} ms  bound {bound:8.5f} ms "
-              f"({bound / device_ms:.1%} of device)")
+              f"  device {device_ms:9.4f} ms"
+              + (f" (before {before} ms)" if before else "")
+              + f"  bound {bound:8.5f} ms ({bound / device_ms:.1%} of device)")
         results[key] = {"err": err, "ms": ms, "device_ms": device_ms,
                         "plain_ms": plain_ms, "bound": bound}
         return got
@@ -364,78 +494,25 @@ def phase_kernels(dev):
         if key.startswith("K2"):
             strings[int(key.split()[-1])] = got
 
-    # K8 on the flagship's interleaved samples, at the same budgets.
-    samples = pipeline.fn_cm_samples(px, FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB,
-                                     config)
-    qtabs = de.qtab_pattern(layout)
-    quant = nbytes(params.reciprocals, params.corrections)
-    for block_budget in (16, 48):
-        key = f"K8 fused_sample_pack budget {block_budget}"
-        got = check(
-            key,
-            lambda: pk.fused_sample_pack(samples, spec, qtabs,
-                                         params.reciprocals, params.corrections,
-                                         params.dc, params.ac, Bp, block_budget),
-            lambda: pk.fused_sample_pack_ref(samples, spec, qtabs,
-                                             params.reciprocals,
-                                             params.corrections, params.dc,
-                                             params.ac, Bp, block_budget),
-            nbytes(samples) + quant + tables,
-        )
-        same_as_split(key, got, strings[block_budget])
-
-    # K8 on the 4K 4:2:0 image with restart interval 64: 384-block segments
-    # whose starts fall inside thread blocks and on their edges.
-    uconfig = EncoderConfig(quality=80, sampling_factor=SamplingFactor.F_2_2,
-                            restart_interval=64)
-    uparams = encode_params(80)
-    upx = torch.from_numpy(make_rgb(UHD_W, UHD_H)).to(dev)
-    ulayout = pipeline.scan_layout(UHD_W, UHD_H, ColorType.RGB, uconfig)
-    ((_, uspec, _),) = de.build_scan_plan(ulayout, ulayout["components"],
-                                          uconfig)
-    uqtabs = de.qtab_pattern(ulayout)
-    usamples = pipeline.fn_cm_samples(upx, UHD_W, UHD_H, ColorType.RGB, uconfig)
-    (ustream,) = pipeline.fn_cm(upx, UHD_W, UHD_H, ColorType.RGB, uconfig,
-                                uparams.reciprocals, uparams.corrections)
-    uB = usamples.shape[1]
-    uBp = -(-uB // 512) * 512
-    print(f"  4K 4:2:0 stream: {uB} blocks, padded to {uBp}, pattern "
-          f"{len(uqtabs)}, segments of {uspec.seg_blocks} blocks")
-    key = "K8 fused_sample_pack 4K 4:2:0 restart 64 budget 16"
-    got = check(
-        key,
-        lambda: pk.fused_sample_pack(usamples, uspec, uqtabs,
-                                     uparams.reciprocals, uparams.corrections,
-                                     uparams.dc, uparams.ac, uBp, 16),
-        lambda: pk.fused_sample_pack_ref(usamples, uspec, uqtabs,
-                                         uparams.reciprocals,
-                                         uparams.corrections, uparams.dc,
-                                         uparams.ac, uBp, 16),
-        nbytes(usamples) + quant + tables,
-    )
-    same_as_split(key, got, pk.scan_pack_blocks(ustream, uspec, uparams.dc,
-                                                uparams.ac, 16))
-
-    # The merge plans of K3/K4's rungs; K5 on K4's rows at rungs 5 and 16.
+    # The merge plans of K3/K4's rungs.
     n_sub = 128
     for rung in (5, 16, 48):
-        words, lens, _ = strings[max(rung, 16)]
-        capB = words.shape[1]
+        capB = strings[max(rung, 16)][0].shape[1]
         chunk, n2, caps, caps_f = pk.merge_plan(Bp, capB, rung, n_sub)
         print(f"  rung {rung}: capB {capB}, chunk {chunk}, n2 {n2}, "
               f"P2 cap {caps[-1]}, P3 cap {caps_f[-1]}")
-        if rung == 48:
-            continue
-        rows, row_bits, _ = pk.merge_chunks(words, lens, chunk, n_sub * n2,
-                                            caps, caps[-1])
-        frows, fbits, _ = pk.fold_rows(rows, row_bits, n2, n_sub, caps_f,
-                                       caps_f[-1])
-        pos = torch.cumsum(fbits.to(torch.int64), 0) - fbits
-        capW = -(-(n_sub * caps_f[-1] + caps_f[-1] + 256) // 128) * 128
-        check(f"K5 concat_rows rung {rung}",
-              lambda: pk.concat_rows(frows, pos, fbits, capW),
-              lambda: pk.concat_rows_ref(frows, pos, fbits, capW),
-              string_bytes(fbits) + nbytes(pos, fbits))
+
+    n_ac = max(spec.ac_tab_pattern) + 1
+    for key, kernel, plain, read_bytes, split in fused_concat_cases(
+            dev, params, spec, stream, dcdiff, Bp, px, layout, config):
+        got = check(key, kernel, plain, read_bytes)
+        if split is not None:
+            same_as_split(key, got, split())
+            capB = got[0].shape[1]
+            print(f"  {key}: dynamic shared memory "
+                  f"{4 * (256 * n_ac + 128 + 128 * capB)} bytes "
+                  f"({n_ac} AC tables, 128 DC entries, tile 128 x {capB} "
+                  f"words)")
 
     # K6, K7, K9 on the progressive flagship's luma stream.
     pconfig = progressive_encoder(dev)._config()

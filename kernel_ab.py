@@ -1,13 +1,15 @@
-"""Hold K2, K3 and K4 of another checkout against this one's on one card.
+"""Hold K2, K3, K4, K5 and K8 of another checkout against this one's on
+one card.
 
     python3 kernel_ab.py DIR
 
 DIR is another checkout of the repository, such as an earlier commit
 unpacked with ``git archive`` into a git-ignored directory.  The script
-times ``chip_smoke.py``'s phase-3 cases of K2, K3 and K4 (the flagship's
-shapes) with DIR's ``tpuenc_torch`` and with this one's, in turns (DIR,
-this, this, DIR), one child process each, and prints one JSON line per
-turn.  Each case has three times in ms: ``ms``, CUDA events around the
+times ``chip_smoke.py``'s phase-3 cases of K2, K3, K4, K5 and K8 (the
+flagship's shapes, K8 also on the 4K 4:2:0 restart-64 scan and K5 also on
+the no-P3 shape) with DIR's ``tpuenc_torch`` and with this one's, in turns
+(DIR, this, this, DIR), one child process each, and prints one JSON line
+per turn.  Each case has three times in ms: ``ms``, CUDA events around the
 call with the card idle (phase 3's "ms", the wrapper's host time in it);
 ``device_ms``, the call queued behind a spin (phase 3's device time); and
 ``profiler_ms``, the kernel alone from ``torch.profiler`` (null where the
@@ -24,7 +26,8 @@ import torch
 import chip_smoke as cs
 
 KERNEL_NAMES = {"K2": "pack_blocks_kernel", "K3": "merge_rows_kernel",
-                "K4": "merge_rows_kernel"}
+                "K4": "merge_rows_kernel", "K5": "concat_rows_kernel",
+                "K8": "fused_sample_pack_kernel"}
 
 
 def profiled_ms(fn, kernel_name, reps=10):
@@ -49,14 +52,17 @@ def profiled_ms(fn, kernel_name, reps=10):
 
 
 def turn(dev):
-    """One turn: the K2-K4 cases on this process's ``tpuenc_torch``, each
-    timed three ways, as one JSON line."""
+    """One turn: the K2-K5 and K8 cases on this process's
+    ``tpuenc_torch``, each timed three ways, as one JSON line."""
     from tpuenc_torch import cuda_lib
 
-    inputs = cs.flagship_inputs(dev)[:5]
+    inputs = cs.flagship_inputs(dev)
     out = {"checkout": os.path.dirname(os.path.dirname(cuda_lib.__file__)),
            "card": cs.card_line()}
-    for key, kernel, _, read_bytes in cs.p1_merge_cases(*inputs):
+    cases = [case[:4] for case in cs.p1_merge_cases(*inputs[:5])]
+    cases += [case[:4] for case in cs.fused_concat_cases(
+        dev, *inputs, log=lambda line: None)]
+    for key, kernel, _, read_bytes in cases:
         got = kernel()
         out[key] = {
             "ms": cs.cuda_ms(kernel),

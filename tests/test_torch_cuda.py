@@ -221,6 +221,79 @@ def test_k5_matches_plain(dev):
     assert torch.equal(got, tpack.concat_rows_ref(r, pos, b, capW))
 
 
+
+# name: (R, W, mean bits per row, capW past R * W, options).  Rows come
+# from _strings (10% empty); options: empty = row slices set empty,
+# mult32 = lengths rounded down to multiples of 32, full = rows whose
+# length fills all W words (and one past them, as an overflowed P3 row
+# is), capW = the stream's words outright (short of the data: the words
+# past it are dropped).
+CONCATS = {
+    "one_row": (1, 700, 9000, 1024, {}),
+    "empty_middle_and_end": (300, 20, 300, 256,
+                             {"empty": [slice(100, 160), slice(260, 300)]}),
+    "multiples_of_32": (200, 16, 250, 256, {"mult32": True}),
+    "full_rows": (64, 30, 500, 256, {"full": [0, 10, 11, 63]}),
+    "no_p3_12000_rows": (12000, 40, 600, 256, {}),
+    "tail_far_past_data": (16, 8, 100, 100000, {}),
+    "cap_short_of_data": (96, 30, 900, 0, {"capW": 1000}),
+}
+
+
+def _concat_case(case):
+    R, W, mean_bits, tail, opt = CONCATS[case]
+    rows, bits = _strings(R, W, R + W, mean_bits, clip=False)
+    bits = np.minimum(bits, 32 * W)
+    for s in opt.get("empty", []):
+        bits[s] = 0
+    if opt.get("mult32"):
+        bits = bits // 32 * 32
+    for i, r in enumerate(opt.get("full", [])):
+        bits[r] = 32 * W + (37 if i == 2 else 0)
+    # Zero past each length, as P2/P3 leave their rows.
+    bit = np.arange(W)[None, :] * 32
+    full = np.clip(bits[:, None] - bit, 0, 32).astype(np.uint64)
+    keep = np.where(full >= 32, 0xFFFFFFFF, ((1 << full) - 1) << (32 - full))
+    rows = (rows.view(np.uint32) & keep.astype(np.uint32)).view(np.int32)
+    capW = opt.get("capW", R * W + tail)
+    return rows, bits.astype(np.int32), capW
+
+
+@pytest.mark.parametrize("case", sorted(CONCATS))
+def test_k5_shapes_match_plain(dev, case):
+    """K5 against its plain version: one row, empty rows at the end and in
+    the middle, lengths that are multiples of 32, rows that fill (or pass)
+    all W words, the no-P3 shape of ~12,000 rows, a tail far past the
+    data, and a stream shorter than the data."""
+    rows, bits, capW = _concat_case(case)
+    r = torch.from_numpy(rows).to(dev)
+    b = torch.from_numpy(bits).to(dev)
+    pos = torch.cumsum(b.to(torch.int64), 0) - b
+    n = tpack.concat_rows.launches
+    got = tpack.concat_rows(r, pos, b, capW)
+    torch.cuda.synchronize()
+    assert tpack.concat_rows.launches == n + 1
+    assert torch.equal(got, tpack.concat_rows_ref(r, pos, b, capW))
+
+
+def test_k5_writes_every_word(dev):
+    """The K5 wrapper allocates without a zero fill: its output lands on a
+    block the allocator holds dirty, and still equals the plain version."""
+    rows, bits = _strings(128, 64, 5, 1500)
+    r = torch.from_numpy(rows).to(dev)
+    b = torch.from_numpy(bits).to(dev)
+    pos = torch.cumsum(b.to(torch.int64), 0) - b
+    capW = 128 * 64 + 4096
+    want = tpack.concat_rows_ref(r, pos, b, capW)
+    torch.cuda.synchronize()
+    dirty = torch.full((capW,), -1, dtype=torch.int32, device=dev)
+    ptr = dirty.data_ptr()
+    del dirty
+    got = tpack.concat_rows(r, pos, b, capW)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == ptr
+    assert torch.equal(got, want)
+
 ACBANDS = [
     ((1, 22), (22, 43), (43, 64)),            # the flagship's 4-scan plan
     ((1, 6), (6, 11), (11, 16), (16, 21)),    # four bands of a 13-scan plan
@@ -365,6 +438,40 @@ def test_k8_matches_plain_and_split(dev, name, restart_mcus, budget):
         assert torch.equal(g, w) and torch.equal(g, s)
     assert not got[1][1003:].any()
 
+
+
+# name: (FUSED case, restart MCUs, B, Bp, block budget).  Bp past B leaves
+# padding rows: a tile part filled (1100 is no multiple of 128), whole
+# tiles of them (1280), one tile in all (127 of 200).
+FUSED_TILES = {
+    "bp_not_multiple_of_128": ("rgb444", 0, 1003, 1100, 224),
+    "padding_tiles": ("rgb420", 2, 1003, 1280, 16),
+    "one_tile": ("luma", 1, 127, 200, 48),
+    "ycck420_restart_budget_224": ("ycck420", 1, 1003, 1100, 224),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_TILES))
+def test_k8_tiles_match_plain_and_split(dev, case):
+    """K8 == its plain version == K1 -> DC differences -> K2 where the
+    output rows pass the blocks: padding rows inside the last tile and in
+    whole tiles, Bp no multiple of 128, and the largest tile (budget 224)."""
+    name, restart_mcus, B, Bp, budget = FUSED_TILES[case]
+    spec, qtabs = _fused_case(name, restart_mcus)
+    p = _params(dev)
+    x = torch.from_numpy(_samples(B, B + budget)).to(dev)
+    n = tpack.fused_sample_pack.launches
+    got = tpack.fused_sample_pack(x, spec, qtabs, p.reciprocals, p.corrections,
+                                  p.dc, p.ac, Bp, budget)
+    torch.cuda.synchronize()
+    assert tpack.fused_sample_pack.launches == n + 1
+    assert got[0].shape == (Bp, tpack.final_block_cap(budget))
+    want = tpack.fused_sample_pack_ref(x, spec, qtabs, p.reciprocals,
+                                       p.corrections, p.dc, p.ac, Bp, budget)
+    split = _split_p1(x, spec, qtabs, p, Bp, budget)
+    for g, w, s in zip(got, want, split):
+        assert torch.equal(g, w) and torch.equal(g, s)
+    assert not got[1][B:].any() and not got[0][B:].any()
 
 @pytest.mark.parametrize("budget", [16, 48])
 def test_k8_overflow_flag(dev, budget):

@@ -183,6 +183,49 @@ def test_merge_matches_pallas(Bp, budget, mean_bits, p3, ovf):
     assert (-(-n1 // 8) > 1) == p3
 
 
+
+# name: (R, W, mean bits per row, extra capW words, options).  The TPU
+# kernel takes R in multiples of 8 and capW of at least R * W + W + 256
+# rounded up to 128; options: empty = rows set empty, full = rows that
+# fill all W words, mult32 = lengths rounded down to multiples of 32.
+CONCATS = {
+    "one_nonempty_row": (8, 40, 900, 0, {"empty": slice(1, 8)}),
+    "empty_middle_and_end": (64, 20, 200, 0,
+                             {"empty": [*range(20, 30), *range(56, 64)]}),
+    "multiples_of_32": (32, 16, 250, 0, {"mult32": True}),
+    "full_rows": (16, 12, 200, 0, {"full": [0, 7, 15]}),
+    "tail_far_past_data": (16, 8, 100, 4096, {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CONCATS))
+def test_concat_rows_matches_pallas(case):
+    """K5's plain version == tpuenc's K5 in interpret mode on the edge
+    shapes its CUDA kernel is held to on the card."""
+    R, W, mean_bits, extra, opt = CONCATS[case]
+    rng = np.random.default_rng(R + W)
+    words, bits = _strings(R, W, rng, mean_bits)
+    if "empty" in opt:
+        bits[opt["empty"]] = 0
+    if opt.get("mult32"):
+        bits = bits // 32 * 32
+    for r in opt.get("full", []):
+        bits[r] = 32 * W
+    full = np.clip(bits[:, None] - np.arange(W)[None, :] * 32, 0, 32)
+    keep = np.where(full >= 32, 0xFFFFFFFF,
+                    ((1 << full) - 1) << (32 - full)).astype(np.uint64)
+    words = (words.astype(np.uint64) & keep).astype(np.uint32)
+    bits = bits.astype(np.int32)
+    capW = -(-(R * W + W + 256) // 128) * 128 + extra
+    pos = np.concatenate([[0], np.cumsum(bits)[:-1]]).astype(np.int32)
+    want = jpack._build_concat_rows_fn(R, W, capW, True)(
+        jnp.asarray(pos), jnp.asarray(bits), jnp.asarray(words))
+    got = tpack.concat_rows(torch.from_numpy(words.view(np.int32)),
+                            torch.from_numpy(pos.astype(np.int64)),
+                            torch.from_numpy(bits), capW)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(want)[0].view(np.int32))
+
 def _serial_stream(words, lens):
     acc, n = 0, 0
     for w, nb in zip(words, lens):

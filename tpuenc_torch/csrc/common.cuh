@@ -8,6 +8,7 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <mutex>
 #include <utility>
 
 #define TPUENC_API extern "C" __attribute__((visibility("default")))
@@ -33,21 +34,11 @@ __device__ __forceinline__ int bit_length(uint32_t av) {
     return av == 0 ? 0 : 32 - __clz(av);
 }
 
-// OR a bit string that starts at bit `off` of `row` (capacity `cap`
-// words): the word lands in words off>>5 and off>>5 + 1.  Words past the
-// capacity are dropped; the callers' overflow flags report that case.
-__device__ __forceinline__ void or_at(uint32_t* row, long long cap,
-                                      long long off, uint32_t w) {
-    const long long d = off >> 5;
-    const int ph = (int)(off & 31);
-    if (d < cap) atomicOr(row + d, w >> ph);
-    if (ph != 0 && d + 1 < cap) atomicOr(row + d + 1, w << (32 - ph));
-}
-
 // Serial writer of one block's bit string into its own row of `cap`
-// words (K6, K8): items are appended MSB first through a 64-bit
-// accumulator; words past the capacity are dropped (the overflow flags
-// report that case) and finish() zero-fills the rest of the row.
+// words, used by K6 alone (K2 and K8 run pack_block below): items are
+// appended MSB first through a 64-bit accumulator; words past the capacity
+// are dropped (the overflow flags report that case) and finish()
+// zero-fills the rest of the row.
 struct BitWriter {
     uint32_t* row;
     int cap;
@@ -205,105 +196,13 @@ __device__ __forceinline__ void quantize_zigzag(
 }
 
 // ---------------------------------------------------------------------------
-// P1 of one block (K8): the body of pallas_pack._p1_tile_body.
+// P1 of one block (K2, K8): the body of pallas_pack._p1_tile_body, without
+// branches, written into a row that is zero beforehand.
 // ---------------------------------------------------------------------------
 
 struct P1Caps {
     int cap8, cap16, cap32, cap64, cap_final;  // block_caps()[2..5], +1
 };
-
-// Writes the block's bit string through `bw` and returns its length in
-// bits: the DC difference item (when emit_dc), then for each nonzero
-// coefficient of the band [ss, se) its (run, size) code and magnitude
-// bits, a ZRL code in each zero slot whose run reaches 16/32/48 before the
-// last nonzero, and EOB when the last nonzero lies below se-1.  Sets `ovf`
-// where the TPU kernel sets its flag: when an aligned window of 8/16/32/64
-// slot items exceeds 32 x its cap, or the block with its EOB exceeds
-// 32 x cap_final.  `dct` is the block's DC table row (16 entries), `act`
-// its AC table (256); entries are size << 16 | code.
-__device__ __forceinline__ int p1_block(const int (&c)[64], int32_t diff,
-                                        bool emit_dc, int ss, int se,
-                                        const uint32_t* dct,
-                                        const uint32_t* act, const P1Caps& cp,
-                                        BitWriter& bw, bool& ovf) {
-    int last = -1;  // last nonzero slot of the band
-#pragma unroll
-    for (int k = 0; k < 64; ++k)
-        if (k >= ss && k < se && c[k] != 0) last = k;
-
-    const uint32_t zrl = act[0xF0];
-    const int zrl_hs = (int)(zrl >> 16);
-    const uint32_t zrl_w = shl32(zrl & 0xFFFF, 32 - zrl_hs);
-
-    int s8 = 0, s16 = 0, s32 = 0, s64 = 0;
-    int prev = ss - 1;  // previous nonzero slot of the band
-#pragma unroll
-    for (int k = 0; k < 64; ++k) {
-        int len = 0;
-        uint32_t word = 0;
-        if (k == 0 && emit_dc) {
-            const int size = bit_length(diff < 0 ? 0u - (uint32_t)diff
-                                                  : (uint32_t)diff);
-            const uint32_t extra = (uint32_t)(diff - (diff < 0)) & mask32(size);
-            const uint32_t lut = size < 16 ? dct[size] : 0u;
-            len = (int)(lut >> 16) + size;
-            word = shl32(shl32(lut & 0xFFFF, size) | extra, 32 - len);
-        } else if (k >= ss && k < se) {
-            const int v = c[k];
-            const int run = k - prev - 1;
-            if (v != 0) {
-                const int size = bit_length(v < 0 ? -v : v);
-                const uint32_t extra = (uint32_t)(v - (v < 0)) & mask32(size);
-                const int sym = ((run & 15) << 4) | size;
-                // The TPU kernel looks the symbol up in two 128-entry
-                // halves, so sym 256 (size 16) reads entry 128.
-                const uint32_t lut = act[sym < 256 ? sym : 128 + (sym & 127)];
-                len = (int)(lut >> 16) + size;
-                word = shl32(shl32(lut & 0xFFFF, size) | extra, 32 - len);
-                prev = k;
-            } else if ((run & 15) == 15 && k < last) {
-                len = zrl_hs;
-                word = zrl_w;
-            }
-        }
-        bw.put(word, len);
-        s8 += len;
-        if ((k & 7) == 7) {
-            ovf |= s8 > 32 * cp.cap8;
-            s16 += s8;
-            s8 = 0;
-        }
-        if ((k & 15) == 15) {
-            ovf |= s16 > 32 * cp.cap16;
-            s32 += s16;
-            s16 = 0;
-        }
-        if ((k & 31) == 31) {
-            ovf |= s32 > 32 * cp.cap32;
-            s64 += s32;
-            s32 = 0;
-        }
-    }
-    ovf |= s64 > 32 * cp.cap64;
-
-    int total = s64;
-    if (last < se - 1) {
-        const uint32_t eob = act[0];
-        int hs = (int)(eob >> 16);
-        hs = hs < 32 ? hs : 32;
-        bw.put(shl32(eob & 0xFFFF, 32 - hs), hs);
-        total += (int)(eob >> 16);
-    }
-    ovf |= total > 32 * cp.cap_final;
-    bw.finish();
-    return total;
-}
-
-// ---------------------------------------------------------------------------
-// P1 of one block without branches (K2): p1_block's bit string, window sums
-// and flag, written into a row that is zero beforehand.  K8 still runs
-// p1_block; its redesign moves it to pack_block, so one P1 body is kept.
-// ---------------------------------------------------------------------------
 
 // Appends an MSB-aligned item of len <= 32 bits (zero past len) to the
 // word being filled (`cur`, `nb` < 32 bits in it); a full word goes to
@@ -321,12 +220,19 @@ __device__ __forceinline__ void append(uint32_t word, int len, uint32_t& cur,
     nb -= full ? 32 : 0;
 }
 
-// The block's bit string into `row` (cap_final words, zero beforehand) and
-// its length in bits, with p1_block's items, window sums and flag.  Every
-// slot's item is computed and selected, and its bits are appended to a
-// 32-bit word by funnel shifts.  The symbol (run & 15) << 4 | size stays
-// below 256 (size 16 only sets a bit the run's nibble already has), so it
-// indexes the AC table directly.
+// The block's bit string into `row` (cap_final words, zero beforehand;
+// words past it are dropped) and its length in bits: the DC difference
+// item (when emit_dc), then for each nonzero coefficient of the band
+// [ss, se) its (run, size) code and magnitude bits, a ZRL code in each zero
+// slot whose run reaches 16/32/48 before the last nonzero, and EOB when the
+// last nonzero lies below se-1.  Sets `ovf` where the TPU kernel sets its
+// flag: when an aligned window of 8/16/32/64 slot items exceeds 32 x its
+// cap, or the block with its EOB exceeds 32 x cap_final.  `dct` is the
+// block's DC table row (16 entries), `act` its AC table (256); entries are
+// size << 16 | code.  Every slot's item is computed and selected, and its
+// bits are appended to a 32-bit word by funnel shifts.  The symbol
+// (run & 15) << 4 | size stays below 256 (size 16 only sets a bit the run's
+// nibble already has), so it indexes the AC table directly.
 __device__ __forceinline__ int pack_block(const int (&c)[64], int32_t diff,
                                           bool emit_dc, int ss, int se,
                                           const uint32_t* dct,
@@ -405,6 +311,231 @@ __device__ __forceinline__ int pack_block(const int (&c)[64], int32_t diff,
     ovf |= total > 32 * cap;
     if (nb > 0 && w < cap) row[w] = cur;
     return total;
+}
+
+
+// ---------------------------------------------------------------------------
+// The staged P1 tile (K2, K8).  A thread block packs kP1Threads consecutive
+// blocks, one a thread.  It stages the scan's AC tables (those the pattern
+// names, <= 8 x 256 entries) and DC table rows (128) in shared memory and
+// zeroes a shared tile of kP1Threads x capB words (p1_stage); each thread
+// writes its block's string with pack_block into its row of the tile
+// (p1_pack); after a barrier the tile's rows, which are consecutive rows
+// of `words`, go out, zero tails and padding rows (b >= n_blocks)
+// included, as one contiguous run of 16-byte stores, consecutive across
+// the threads (p1_store).  The kernels differ only in how a thread gets
+// its 64 coefficients and its DC difference.  cap_final is odd at the
+// budgets the encoder uses (19, 51, 65), so the threads' rows start on
+// different banks.
+// ---------------------------------------------------------------------------
+
+constexpr int kP1Threads = 128;  // blocks per tile
+constexpr int kMaxPattern = 16;
+constexpr int kMaxTables = 8;
+constexpr int kDcEntries = 16 * kMaxTables;
+
+struct P1Scan {
+    int pat;                   // blocks per repeating table pattern
+    int dc_tab[kMaxPattern];   // DC table id per pattern position
+    int ac_tab[kMaxPattern];   // AC table id per pattern position
+    int n_ac;                  // AC tables staged: max(ac_tab) + 1
+    int ss, se, emit_dc;       // spectral band [ss, se); DC item or not
+    P1Caps caps;
+};
+
+// The scan of an entry point's arguments (pattern: dc_tab[pat], then
+// ac_tab[pat]; caps: the five P1 caps); false where one is out of range.
+inline bool p1_scan(const int* pattern, int pat, int ss, int se, int emit_dc,
+                    const int* caps, P1Scan& s) {
+    if (pat < 1 || pat > kMaxPattern || caps[4] < 1) return false;
+    s.pat = pat;
+    s.n_ac = 1;
+    for (int i = 0; i < pat; ++i) {
+        s.dc_tab[i] = pattern[i];
+        s.ac_tab[i] = pattern[pat + i];
+        if (s.dc_tab[i] < 0 || s.dc_tab[i] >= kMaxTables || s.ac_tab[i] < 0 ||
+            s.ac_tab[i] >= kMaxTables)
+            return false;
+        s.n_ac = s.ac_tab[i] + 1 > s.n_ac ? s.ac_tab[i] + 1 : s.n_ac;
+    }
+    s.ss = ss;
+    s.se = se;
+    s.emit_dc = emit_dc;
+    s.caps = {caps[0], caps[1], caps[2], caps[3], caps[4]};
+    return true;
+}
+
+// Bytes of dynamic shared memory the tile takes: [AC tables: n_ac x 256]
+// [DC rows: 128][rows: kP1Threads x capB], each part on a 16-byte
+// boundary.  cap_final <= 65 (block_caps doubles from 1 six times), so it
+// stays under 42 KB.
+inline size_t p1_smem(const P1Scan& s) {
+    return sizeof(uint32_t) * ((size_t)256 * s.n_ac + kDcEntries +
+                               (size_t)kP1Threads * s.caps.cap_final);
+}
+
+struct P1Tile {
+    uint32_t* act;   // AC tables
+    uint32_t* dct;   // DC table rows
+    uint32_t* rows;  // kP1Threads x capB
+};
+
+// Stages the tables and zeroes the rows; the caller's barrier publishes
+// them.
+__device__ __forceinline__ P1Tile p1_stage(uint32_t* smem, const P1Scan& s,
+                                           const uint32_t* __restrict__ dc_tab,
+                                           const uint32_t* __restrict__ ac_tab) {
+    P1Tile tile;
+    tile.act = smem;
+    tile.dct = tile.act + 256 * s.n_ac;
+    tile.rows = tile.dct + kDcEntries;
+    const int t = threadIdx.x;
+    for (int i = t; i < 256 * s.n_ac; i += kP1Threads) tile.act[i] = ac_tab[i];
+    for (int i = t; i < kDcEntries; i += kP1Threads) tile.dct[i] = dc_tab[i];
+    uint4* rows4 = reinterpret_cast<uint4*>(tile.rows);
+    for (int i = t; i < kP1Threads * s.caps.cap_final / 4; i += kP1Threads)
+        rows4[i] = make_uint4(0, 0, 0, 0);
+    return tile;
+}
+
+// Block b (this thread's, in the tile starting at b - threadIdx.x) into
+// its row of the tile, with its length; padding blocks n_blocks <= b < Bp
+// get length 0.  After the barrier that follows p1_stage.
+__device__ __forceinline__ void p1_pack(const P1Tile& tile, const P1Scan& s,
+                                        const int (&c)[64], int32_t diff,
+                                        long long b, long long n_blocks,
+                                        long long Bp, int32_t* __restrict__ lens,
+                                        int32_t* __restrict__ overflow) {
+    if (b < n_blocks) {
+        const int pos = (int)(b % s.pat);
+        bool ovf = false;
+        lens[b] = pack_block(c, diff, s.emit_dc, s.ss, s.se,
+                             tile.dct + 16 * s.dc_tab[pos],
+                             tile.act + 256 * s.ac_tab[pos], s.caps,
+                             tile.rows + threadIdx.x * s.caps.cap_final, ovf);
+        if (ovf) *overflow = 1;
+    } else if (b < Bp) {
+        lens[b] = 0;
+    }
+}
+
+// The tile's rows [b0, min(b0 + kP1Threads, Bp)) out to `words` (Bp x
+// capB); after the barrier that follows p1_pack.  b0 x capB is a multiple
+// of 4 words, so the 16-byte stores stay aligned when `words` is.
+__device__ __forceinline__ void p1_store(const P1Tile& tile, int capB,
+                                         long long b0, long long Bp,
+                                         uint32_t* __restrict__ words) {
+    const int t = threadIdx.x;
+    const long long rows = Bp - b0 < kP1Threads ? Bp - b0 : kP1Threads;
+    const int n = (int)rows * capB;
+    uint32_t* dst = words + b0 * capB;
+    int head = 0;  // words stored by the 16-byte stores
+    if ((reinterpret_cast<uintptr_t>(words) & 15) == 0) {
+        const uint4* src4 = reinterpret_cast<const uint4*>(tile.rows);
+        uint4* dst4 = reinterpret_cast<uint4*>(dst);
+        for (int i = t; i < n / 4; i += kP1Threads) dst4[i] = src4[i];
+        head = n / 4 * 4;
+    }
+    for (int i = head + t; i < n; i += kP1Threads) dst[i] = tile.rows[i];
+}
+
+// ---------------------------------------------------------------------------
+// The bit gather of P2-P4 (K3/K4, K5): output word [bit, bit + 32) of rows
+// that are concatenated in order, row i starting at bit pref[i] and ending
+// at pref[i + 1].  `pref` is any type with a nondecreasing operator[] over
+// [0, n_rows]: shared memory for K3/K4, device memory for K5.
+// ---------------------------------------------------------------------------
+
+// The largest m in [lo, hi] with pref[m] <= x (pref[lo] <= x).
+template <class Prefix>
+__device__ __forceinline__ int last_at_most(const Prefix& pref, int lo, int hi,
+                                            long long x) {
+    while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (pref[mid] <= x) {
+            lo = mid;
+        } else {
+            hi = mid - 1;
+        }
+    }
+    return lo;
+}
+
+// Output word [bit, bit + 32) of the rows of `width` words at X, for
+// pref[0] <= bit < pref[n_rows]: a binary search finds the first row that
+// ends past bit, and the bits of every row that overlaps the word (one
+// funnel shift of two adjacent source words per row; a word may span many
+// short rows) are ORed in a register.  A stretch of empty rows is crossed
+// by one more search.  Word j of a row counts where 32j < its length and
+// j < width (merge_rows_ref's and concat_rows_ref's `active`); rows are
+// zero past their lengths and never share bits, so the OR is the
+// concatenation.
+template <class Prefix>
+__device__ __forceinline__ uint32_t gather_word(const uint32_t* __restrict__ X,
+                                                const Prefix& pref, int n_rows,
+                                                int width, long long bit) {
+    int i = last_at_most(pref, 0, n_rows, bit);
+    uint32_t word = 0;
+    while (i < n_rows) {
+        const long long start = pref[i];
+        if (start >= bit + 32) break;
+        const long long end = pref[i + 1];
+        if (end == start) {
+            // Rows i.. are empty up to the first that starts later.
+            i = last_at_most(pref, i + 1, n_rows, start);
+            continue;
+        }
+        // The row starts d bits before this word (d > -32; j = -1 where it
+        // starts inside it).
+        const long long n_words = min((long long)width, (end - start + 31) >> 5);
+        const long long d = bit - start;
+        const long long j = d >> 5;
+        const int sh = (int)(d & 31);
+        const uint32_t* src = X + (long long)i * width;
+        const uint32_t hi_w = j >= 0 && j < n_words ? src[j] : 0u;
+        const uint32_t lo_w = sh != 0 && j + 1 < n_words ? src[j + 1] : 0u;
+        word |= __funnelshift_l(lo_w, hi_w, sh);
+        ++i;
+    }
+    return word;
+}
+
+// What a launcher needs of a card to size a grid that fills it once,
+// asked once per device: its SMs, the shared memory of one SM, and what
+// the runtime reserves of it per thread block.
+struct CardLimits {
+    int sms = 0;
+    int smem_per_sm = 0;
+    int reserved_per_block = 0;
+};
+
+constexpr int kMaxDevices = 64;
+
+// The current device's limits; nullptr for a device id past kMaxDevices.
+inline const CardLimits* card_limits() {
+    static CardLimits limits[kMaxDevices];
+    static std::once_flag once[kMaxDevices];
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (dev < 0 || dev >= kMaxDevices) return nullptr;
+    std::call_once(once[dev], [dev] {
+        CardLimits& c = limits[dev];
+        cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, dev);
+        cudaDeviceGetAttribute(&c.smem_per_sm,
+                               cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+        cudaDeviceGetAttribute(&c.reserved_per_block,
+                               cudaDevAttrReservedSharedMemoryPerBlock, dev);
+    });
+    return &limits[dev];
+}
+
+// Thread blocks resident on the card at once, each holding `smem` bytes
+// of shared memory, at most `max_per_sm` on an SM (at least one).
+inline long long resident_blocks(const CardLimits& card, size_t smem,
+                                 int max_per_sm) {
+    long long per_sm = card.smem_per_sm / ((long long)smem + card.reserved_per_block);
+    per_sm = per_sm < max_per_sm ? per_sm : max_per_sm;
+    return (long long)card.sms * (per_sm > 0 ? per_sm : 1);
 }
 
 }  // namespace tpuenc

@@ -13,13 +13,27 @@
 // to device memory.
 //
 // Bound on the card: bytes at the least (21.6 MB of samples read and
-// 13.5 MB of strings written at the flagship), but in practice the serial
-// bit writer's latency, as in K2, behind a transform of ~3,000 integer
-// operations per block.  Design: one thread per block, as K1 and K2 (the
-// transform, the quantizer and the P1 body are common.cuh's, shared with
-// them); a warp's reads of row k are 32 consecutive samples (coalesced),
-// and the kernel masks the ragged end itself, so the samples are not
-// padded.
+// 13.5 MB of strings written at the flagship), in practice instructions:
+// a transform of ~3,000 integer operations per block, then K2's ~64 slot
+// steps.  The first design ran a serial bit writer that stored each
+// block's row straight to device memory: divergent branches, stores to
+// rows capB x 4 bytes apart (one sector per lane) and Huffman lookups as
+// divergent gathers through L1, as K2's first design.
+//
+// Design: one thread per block, as K1 and K2; the transform and the
+// quantizer are common.cuh's (shared with K1), and the P1 part is
+// common.cuh's staged tile (shared with K2).  Each thread block stages the
+// scan's Huffman tables in shared memory and zeroes a shared tile of
+// kP1Threads x capB words (p1_stage); each thread loads its block's 64
+// samples (a warp's reads of row k are 32 consecutive samples, coalesced;
+// the kernel masks the ragged end itself, so the samples are not padded),
+// transforms and quantizes them in registers, and takes its DC difference
+// from the halo below; pack_block writes the string into its row of the
+// tile (p1_pack), and after a barrier the tile goes out as 16-byte stores,
+// zero tails and padding rows included (p1_store).  With the halo's DCs
+// that is at most 42,560 bytes of shared memory (budget 224, the largest
+// tile, and all eight AC tables), under the 48 KB a thread block takes by
+// default.
 //
 // The DC carry.  The TPU kernel carries the previous grid step's last DCs
 // in VMEM, because its grid runs in order; thread blocks on the card run
@@ -30,31 +44,29 @@
 // which is the plain sum of its 64 samples: pass 1 of the LL&M transform
 // puts 4 x each row sum in column 0, and pass 2 descales their sum by 4
 // exactly, (4S + 2) >> 2 = S; the sum is then quantized as K1 quantizes
-// slot 0.  One launch, no dependency between thread blocks, and at most
+// slot 0.  Eight threads share each halo block's sum, eight independent
+// loads each, so the barrier does not wait on one thread's 64 loads in a
+// row.  One launch, no dependency between thread blocks, and at most
 // pat x 64 extra loads per 128 blocks.
 
 #include "common.cuh"
 
 namespace {
 
-using tpuenc::BitWriter;
+using tpuenc::kMaxPattern;
+using tpuenc::kP1Threads;
 using tpuenc::u32;
 
-constexpr int kThreads = 128;
-constexpr int kMaxPattern = 16;
-
 struct FusedParams {
-    int pat;                   // blocks per MCU (the table pattern)
-    int dc_tab[kMaxPattern];   // DC Huffman table id per MCU position
-    int ac_tab[kMaxPattern];   // AC Huffman table id per MCU position
+    tpuenc::P1Scan scan;       // the tables per MCU position, band and caps
     int qtab[kMaxPattern];     // quantization table (0 luma, 1 chroma)
     int delta[kMaxPattern];    // distance to the previous block of its component
-    int ss, se;                // spectral band of the AC items
     long long seg_blocks;      // restart segment in blocks; 0: one segment
-    tpuenc::P1Caps caps;
 };
 
-__global__ void __launch_bounds__(kThreads)
+constexpr size_t kDcBytes = sizeof(int) * (kMaxPattern + kP1Threads);
+
+__global__ void __launch_bounds__(kP1Threads)
 fused_sample_pack_kernel(const int16_t* __restrict__ x, long long n_blocks,
                          long long Bp, const int32_t* __restrict__ recip,
                          const int32_t* __restrict__ corr,
@@ -63,53 +75,60 @@ fused_sample_pack_kernel(const int16_t* __restrict__ x, long long n_blocks,
                          uint32_t* __restrict__ words,
                          int32_t* __restrict__ lens,
                          int32_t* __restrict__ overflow) {
-    // dc[kMaxPattern + t] is the DC of block base + t; the pat entries
+    extern __shared__ __align__(16) uint32_t smem[];
+    // dc[kMaxPattern + t] is the DC of block b0 + t; the pat entries
     // before kMaxPattern are the halo's.
-    __shared__ int dc[kMaxPattern + kThreads];
+    __shared__ int dc[kMaxPattern + kP1Threads];
+    const tpuenc::P1Scan& s = p.scan;
+    const tpuenc::P1Tile tile = tpuenc::p1_stage(smem, s, dc_tab, ac_tab);
     const int t = threadIdx.x;
-    const long long base = (long long)blockIdx.x * kThreads;
-    const long long b = base + t;
+    const long long b0 = (long long)blockIdx.x * kP1Threads;
+    const long long b = b0 + t;
     const bool valid = b < n_blocks;
-    const int pos = (int)(b % p.pat);
+    const int pos = (int)(b % s.pat);
 
     int c[64];
     if (valid) {
         const int qt = p.qtab[pos];
-        u32 s[64];
+        u32 v[64];
 #pragma unroll
-        for (int k = 0; k < 64; ++k) s[k] = (u32)(int)x[k * n_blocks + b];
-        tpuenc::fdct_8x8(s);
-        tpuenc::quantize_zigzag(s, recip + 64 * qt, corr + 64 * qt, c);
+        for (int k = 0; k < 64; ++k) v[k] = (u32)(int)x[k * n_blocks + b];
+        tpuenc::fdct_8x8(v);
+        tpuenc::quantize_zigzag(v, recip + 64 * qt, corr + 64 * qt, c);
     }
     dc[kMaxPattern + t] = valid ? c[0] : 0;
-    const long long h = base - p.pat + t;  // this thread's halo block
-    if (t < p.pat && h >= 0 && h < n_blocks) {
-        u32 sum = 0;
-        for (int k = 0; k < 64; ++k) sum += (u32)(int)x[k * n_blocks + h];
-        const int qt = p.qtab[(int)(h % p.pat)];
-        dc[kMaxPattern - p.pat + t] = tpuenc::quantize(sum, recip[64 * qt],
+    // Halo block i = t / 8 (i < pat): eight threads each sum eight of its
+    // samples, and three shuffles within their aligned group of eight
+    // lanes add the parts (mod 2^32, in any order).
+    const int i = t >> 3;
+    const long long h = b0 - s.pat + i;
+    const bool halo = i < s.pat && h >= 0 && h < n_blocks;
+    u32 sum = 0;
+    if (halo) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+            sum += (u32)(int)x[((t & 7) * 8 + k) * n_blocks + h];
+    }
+    sum += __shfl_xor_sync(0xFFFFFFFFu, sum, 1);
+    sum += __shfl_xor_sync(0xFFFFFFFFu, sum, 2);
+    sum += __shfl_xor_sync(0xFFFFFFFFu, sum, 4);
+    if (halo && (t & 7) == 0) {
+        const int qt = p.qtab[(int)(h % s.pat)];
+        dc[kMaxPattern - s.pat + i] = tpuenc::quantize(sum, recip[64 * qt],
                                                        corr[64 * qt]);
     }
-    __syncthreads();
-    if (b >= Bp) return;
+    __syncthreads();  // the DCs, the tables and the zeroed tile
 
-    BitWriter bw;
-    bw.row = words + b * p.caps.cap_final;
-    bw.cap = p.caps.cap_final;
-    if (!valid) {
-        bw.finish();
-        lens[b] = 0;
-        return;
+    int32_t diff = 0;
+    if (valid) {
+        // dc_diffs_from_dc: 0-based at each restart segment start.
+        const int d = p.delta[pos];
+        const long long seg_pos = p.seg_blocks > 0 ? b % p.seg_blocks : b;
+        diff = c[0] - (seg_pos >= d ? dc[kMaxPattern + t - d] : 0);
     }
-    // dc_diffs_from_dc: 0-based at each restart segment start.
-    const int d = p.delta[pos];
-    const long long seg_pos = p.seg_blocks > 0 ? b % p.seg_blocks : b;
-    const int prev = seg_pos >= d ? dc[kMaxPattern + t - d] : 0;
-    bool ovf = false;
-    lens[b] = tpuenc::p1_block(c, c[0] - prev, true, p.ss, p.se,
-                               dc_tab + 16 * p.dc_tab[pos],
-                               ac_tab + 256 * p.ac_tab[pos], p.caps, bw, ovf);
-    if (ovf) *overflow = 1;
+    tpuenc::p1_pack(tile, s, c, diff, b, n_blocks, Bp, lens, overflow);
+    __syncthreads();
+    tpuenc::p1_store(tile, s.caps.cap_final, b0, Bp, words);
 }
 
 }  // namespace
@@ -122,23 +141,22 @@ TPUENC_API int tpuenc_fused_sample_pack(
         const int* pattern, int pat, int ss, int se, long long seg_blocks,
         const int* caps, void* words, void* lens, void* overflow,
         void* stream) {
-    if (pat < 1 || pat > kMaxPattern) return (int)cudaErrorInvalidValue;
     FusedParams p;
-    p.pat = pat;
+    if (!tpuenc::p1_scan(pattern, pat, ss, se, 1, caps, p.scan))
+        return (int)cudaErrorInvalidValue;
     for (int i = 0; i < pat; ++i) {
-        p.dc_tab[i] = pattern[i];
-        p.ac_tab[i] = pattern[pat + i];
         p.qtab[i] = pattern[2 * pat + i];
         p.delta[i] = pattern[3 * pat + i];
-        if (p.delta[i] < 1 || p.delta[i] > pat) return (int)cudaErrorInvalidValue;
+        if (p.qtab[i] < 0 || p.qtab[i] > 1 || p.delta[i] < 1 ||
+            p.delta[i] > pat)
+            return (int)cudaErrorInvalidValue;
     }
-    p.ss = ss;
-    p.se = se;
     p.seg_blocks = seg_blocks;
-    p.caps = {caps[0], caps[1], caps[2], caps[3], caps[4]};
+    const size_t smem = tpuenc::p1_smem(p.scan);
+    if (smem + kDcBytes > 48 * 1024) return (int)cudaErrorInvalidValue;
     if (Bp > 0) {
-        const long long grid = (Bp + kThreads - 1) / kThreads;
-        fused_sample_pack_kernel<<<(unsigned)grid, kThreads, 0,
+        const long long grid = (Bp + kP1Threads - 1) / kP1Threads;
+        fused_sample_pack_kernel<<<(unsigned)grid, kP1Threads, smem,
                                    (cudaStream_t)stream>>>(
             (const int16_t*)x, n_blocks, Bp, (const int32_t*)recip,
             (const int32_t*)corr, (const uint32_t*)dc_tab,

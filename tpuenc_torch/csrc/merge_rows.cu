@@ -25,23 +25,23 @@
 // Design: a gather.  The grid covers (run, tile of output words), with as
 // many tiles per run as fill the card's resident thread blocks once (P3's
 // 128 runs of 10,496 words become ~1,000 thread blocks, not 128; the SM
-// count and shared memory that decide it are asked once per device).  Each
+// count and shared memory that decide it are asked once per device, by
+// common.cuh's card_limits).  Each
 // thread block loads its run's lengths into shared memory and turns them
 // into the prefix with a block-wide scan: each thread sums a contiguous
 // segment, warp shuffles scan the segment sums, one warp scans the warp
 // totals.  Tile 0 of each run writes the run's length and evaluates the
 // overflow windows, its threads splitting them.  Each thread then owns
-// output words w = tile start + k x kThreads + thread: it binary-searches
-// the prefix for the first row that ends past bit 32w, ORs in a register
-// the bits of every row that overlaps [32w, 32w + 32) (one funnel shift of
+// output words w = tile start + k x kThreads + thread, each built by
+// common.cuh's gather_word (shared with K5): it binary-searches the
+// prefix for the first row that ends past bit 32w, ORs in a register the
+// bits of every row that overlaps [32w, 32w + 32) (one funnel shift of
 // two adjacent source words per row; a word may span many short rows; a
 // stretch of empty rows, such as the padding blocks at a stream's end, is
 // crossed by one more search) and stores the word once.  A warp's stores,
 // and within a row its loads, are consecutive words.  Rows never share
 // bits, so the OR is the concatenation.  No atomics, no thread walks a
 // run.
-
-#include <mutex>
 
 #include "common.cuh"
 
@@ -54,7 +54,6 @@ constexpr int kThreads = 256;
 // launch bounds' 32 registers a thread allow.
 constexpr int kMinBlocks = 8;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxDevices = 64;
 
 struct MergeCaps {
     int n_levels;
@@ -109,51 +108,6 @@ __device__ __forceinline__ void run_prefix(const int32_t* __restrict__ L,
     __syncthreads();
 }
 
-// The largest m in [lo, hi] with pref[m] <= x (pref[lo] <= x).
-__device__ __forceinline__ int last_at_most(const long long* pref, int lo,
-                                            int hi, long long x) {
-    while (lo < hi) {
-        const int mid = (lo + hi + 1) >> 1;
-        if (pref[mid] <= x) {
-            lo = mid;
-        } else {
-            hi = mid - 1;
-        }
-    }
-    return lo;
-}
-
-// Output word [bit, bit + 32) of the run whose rows start at Xr.
-__device__ __forceinline__ uint32_t gather_word(const uint32_t* __restrict__ Xr,
-                                                const long long* pref, int run,
-                                                int C_in, long long bit) {
-    // The first row that ends past bit: pref[run] > bit, so i < run.
-    int i = last_at_most(pref, 0, run, bit);
-    uint32_t word = 0;
-    while (i < run && pref[i] < bit + 32) {
-        const long long start = pref[i];
-        if (pref[i + 1] == start) {
-            // Rows i.. are empty up to the first that starts later.
-            i = last_at_most(pref, i + 1, run, start);
-            continue;
-        }
-        // Word j of the row counts where 32j < its length and j < C_in
-        // (merge_rows_ref's `active`); the row starts d bits before this
-        // word (d > -32; j = -1 where it starts inside it).
-        const long long n_words =
-            min((long long)C_in, (pref[i + 1] - start + 31) >> 5);
-        const long long d = bit - start;
-        const long long j = d >> 5;
-        const int sh = (int)(d & 31);
-        const uint32_t* src = Xr + (long long)i * C_in;
-        const uint32_t hi_w = j >= 0 && j < n_words ? src[j] : 0u;
-        const uint32_t lo_w = sh != 0 && j + 1 < n_words ? src[j + 1] : 0u;
-        word |= __funnelshift_l(lo_w, hi_w, sh);
-        ++i;
-    }
-    return word;
-}
-
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 merge_rows_kernel(const uint32_t* __restrict__ X,
                   const int32_t* __restrict__ L, long long n_rows, int C_in,
@@ -191,36 +145,9 @@ merge_rows_kernel(const uint32_t* __restrict__ X,
     const int w_end = min(cap_out, (tile + 1) * tile_words);
     for (int w = tile * tile_words + threadIdx.x; w < w_end; w += kThreads) {
         const long long bit = 32LL * w;
-        orow[w] = bit < total ? gather_word(Xr, pref, run, C_in, bit) : 0u;
+        orow[w] = bit < total ? tpuenc::gather_word(Xr, pref, run, C_in, bit)
+                              : 0u;
     }
-}
-
-// What the tile count needs of a card, asked once per device: its SMs, the
-// shared memory of one SM, what the runtime reserves of it per thread
-// block, and the kernel's static shared memory.
-struct CardLimits {
-    int sms = 0;
-    int smem_per_sm = 0;
-    int reserved_per_block = 0;
-    int static_smem = 0;
-};
-
-const CardLimits* card_limits(int dev) {
-    static CardLimits limits[kMaxDevices];
-    static std::once_flag once[kMaxDevices];
-    if (dev < 0 || dev >= kMaxDevices) return nullptr;
-    std::call_once(once[dev], [dev] {
-        CardLimits& c = limits[dev];
-        cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, dev);
-        cudaDeviceGetAttribute(&c.smem_per_sm,
-                               cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-        cudaDeviceGetAttribute(&c.reserved_per_block,
-                               cudaDevAttrReservedSharedMemoryPerBlock, dev);
-        cudaFuncAttributes fa;
-        if (cudaFuncGetAttributes(&fa, merge_rows_kernel) == cudaSuccess)
-            c.static_smem = (int)fa.sharedSizeBytes;
-    });
-    return &limits[dev];
 }
 
 }  // namespace
@@ -240,16 +167,11 @@ TPUENC_API int tpuenc_merge_rows(const void* X, const void* L,
 
     // Tiles per run: enough that the grid fills the card's resident
     // thread blocks once, at least one word per thread each.  A thread
-    // block holds its prefix, the static part and the runtime's reserve.
-    int dev = 0;
-    cudaGetDevice(&dev);
-    const CardLimits* card = card_limits(dev);
+    // block holds its prefix and the scan's warp totals.
+    const tpuenc::CardLimits* card = tpuenc::card_limits();
     if (card == nullptr) return (int)cudaErrorInvalidDevice;
-    const long long per_block =
-        (long long)smem + card->static_smem + card->reserved_per_block;
-    long long per_sm = card->smem_per_sm / per_block;
-    per_sm = per_sm < kMinBlocks ? per_sm : kMinBlocks;
-    const long long slots = (long long)card->sms * (per_sm > 0 ? per_sm : 1);
+    const long long slots = tpuenc::resident_blocks(
+        *card, smem + sizeof(long long) * kWarps, kMinBlocks);
     long long tiles = n_runs > 0 ? (slots + n_runs - 1) / n_runs : 1;
     const long long most = (cap_out + kThreads - 1) / kThreads;
     tiles = tiles < most ? tiles : most;

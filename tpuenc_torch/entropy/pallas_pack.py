@@ -754,9 +754,10 @@ fold_rows.launches = 0
 # ---------------------------------------------------------------------------
 
 def concat_rows_ref(rows, pos, bits, capW: int):
-    """Plain version of K5: ``rows`` int32 (R, W), ``pos`` int64 (R,) bit
-    offsets (exclusive prefix of ``bits``), ``bits`` int32 (R,).  Returns
-    the int32 (capW,) stream with row r at bit pos[r]."""
+    """Plain version of K5: ``rows`` int32 (R, W), zero past their
+    lengths, ``pos`` int64 (R,) bit offsets (exclusive prefix of
+    ``bits``), ``bits`` int32 (R,).  Returns the int32 (capW,) stream with
+    row r at bit pos[r]."""
     dev = rows.device
     R, W = rows.shape
     j = torch.arange(W, device=dev)
@@ -776,7 +777,8 @@ def concat_rows(rows, pos, bits, capW: int):
     cuda_lib.check_tensor("rows", rows, torch.int32, (R, W), dev)
     cuda_lib.check_tensor("pos", pos, torch.int64, (R,), dev)
     cuda_lib.check_tensor("bits", bits, torch.int32, (R,), dev)
-    out = torch.zeros(capW, dtype=torch.int32, device=dev)
+    # The kernel writes every output word, the zero tail included.
+    out = torch.empty(capW, dtype=torch.int32, device=dev)
     lib = cuda_lib.library()
     cuda_lib.check(
         lib.tpuenc_concat_rows(
