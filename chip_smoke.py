@@ -9,7 +9,7 @@ Phases, each printing its own lines and its wall seconds:
 2. build the CUDA kernels from ``tpuenc_torch/csrc`` (one nvcc per source,
    all started together) and time the build; beside it, ``nvcc -Xptxas -v``
    reports the registers, stack, spills and static shared memory of K1, K2,
-   K3/K4, K5 and K8;
+   K3/K4, K5, K6, K7 and K8;
 3. each kernel (K1-K9) against its plain PyTorch version on the same CUDA
    tensors, at the flagship's shapes (2000x1800 RGB, 56,250 blocks per
    component): K1 on the luma plane; K2 on the interleaved stream at block
@@ -19,12 +19,13 @@ Phases, each printing its own lines and its wall seconds:
    dynamic shared memory; K3 and K4 at budget rungs 5, 16 and 48, K5 at 5
    and 16 and on synthetic rows of the no-P3 shape at the whole-image
    limit; K6 on the progressive luma stream with the 4-scan plan's three
-   bands at block budgets 16 and 48; K7 on the same stream and bands; K9
-   on its band (1, 64).  Bit-exact (tolerance 0), with the kernel's time
+   bands at block budgets 16, 48 and 224, with its dynamic shared memory;
+   K7 on the same stream and bands; K9 on its band (1, 64).  Bit-exact
+   (tolerance 0), with the kernel's time
    and the plain version's, both timed the same way (CUDA events around
    the call with the card idle, so the wrapper's host time is in it), the
    kernel's device time (its call queued behind a spin; see ``cuda_ms``),
-   the K2-K4 lines also with their first designs' times and the K5 and K8
+   the K2-K4 lines also with their first designs' times and the K5-K8
    lines with the device times of the designs they replaced, from
    PERF.md, and the kernel's bound: the bytes it must move (each input
    read once, each output written once; bit strings read only up to their
@@ -49,7 +50,7 @@ Phases, each printing its own lines and its wall seconds:
 It prints a JSON line of the kernels, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failure raises, so the
 exit code is not 0 and no result line is printed.  ``kernel_ab.py`` holds
-K2-K5 and K8 against another checkout's on one card.
+K2-K8 against another checkout's on one card.
 """
 
 import json
@@ -173,15 +174,16 @@ def phase_env():
 
 
 PTXAS_REPORTED = ("fdct_quantize.cu", "pack_blocks.cu", "merge_rows.cu",
-                  "concat_rows.cu", "fused_sample_pack.cu")
+                  "concat_rows.cu", "pack_acbands.cu", "hist_count.cu",
+                  "fused_sample_pack.cu")
 
 
 def phase_build():
     """The library build, and beside it one ``-Xptxas -v`` compile of each
-    of K1, K2, K3/K4, K5 and K8 for their registers, stack, spills and
-    static shared memory (K2's and K8's tiles and K3/K4's prefix are
-    dynamic shared memory, sized at launch, which ptxas does not see;
-    phase 3 prints K8's)."""
+    of K1, K2, K3/K4, K5, K6, K7 and K8 for their registers, stack, spills
+    and static shared memory (K2's, K6's and K8's tiles and K3/K4's prefix
+    are dynamic shared memory, sized at launch, which ptxas does not see;
+    phase 3 prints K6's and K8's)."""
     import tempfile
 
     from tpuenc_torch import cuda_lib
@@ -231,12 +233,17 @@ PR4_MS = {
 }
 
 # Device ms of the designs K5 (one thread block per row, atomicOr into a
-# zero-filled output) and K8 (a serial bit writer storing each block's row
-# to device memory) replaced, from PERF.md section 6: the measure of phase
-# 3's device time (``cuda_ms`` queued), NVIDIA H100 80GB HBM3 at 700 W.
+# zero-filled output), K6 and K8 (a serial bit writer storing each block's
+# row to device memory; K6 walking the slots once per band) and K7 (a walk
+# per band, a shared atomic per symbol) replaced, from PERF.md section 6:
+# the measure of phase 3's device time (``cuda_ms`` queued), NVIDIA H100
+# 80GB HBM3 at 700 W.
 REPLACED_DEVICE_MS = {
     "K5 concat_rows rung 5": "0.0140",
     "K5 concat_rows rung 16": "0.0170",
+    "K6 pack_acbands budget 16": "0.0681",
+    "K6 pack_acbands budget 48": "0.1054",
+    "K7 hist_count": "0.0210",
     "K8 fused_sample_pack budget 16": "0.0839",
     "K8 fused_sample_pack budget 48": "0.1901",
     "K8 fused_sample_pack 4K 4:2:0 restart 64 budget 16": "0.0982",
@@ -309,6 +316,43 @@ def p1_merge_cases(params, spec, stream, dcdiff, Bp):
             lambda a=fargs: pk.fold_rows(*a), \
             lambda a=fargs: pk.merge_rows_ref(*a), \
             string_bytes(row_bits) + nbytes(row_bits)
+
+
+# Blocks a K6 thread block packs (kRows in csrc/pack_acbands.cu).
+K6_ROWS = 64
+
+
+def progressive_luma(dev, params, px):
+    """The progressive flagship's luma stream, as phase 3 and
+    ``kernel_ab.py`` feed K6, K7 and K9: (64, B) coefficients, Bp and the
+    4-scan plan's AC bands."""
+    from tpuenc_torch.core.types import ColorType
+    from tpuenc_torch.entropy.huffopt import progressive_bands
+    from tpuenc_torch.kernels import pipeline
+
+    config = progressive_encoder(dev)._config()
+    luma = pipeline.fn_cm(px, FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB, config,
+                          params.reciprocals, params.corrections)[0]
+    Bp = -(-luma.shape[1] // 512) * 512
+    return luma, Bp, tuple(progressive_bands(config.progressive_scans))
+
+
+def acband_hist_cases(params, luma, Bp, bands):
+    """Phase 3's K6 and K7 cases on the progressive luma stream: yields
+    ``(key, kernel, plain, read_bytes)``.  K6 at block budgets 16 (the
+    flagship's), 48 and 224 (a tile past the default 48 KB of shared
+    memory); K7 on the same bands."""
+    from tpuenc_torch.entropy import pallas_hist as ph
+    from tpuenc_torch.entropy import pallas_pack as pk
+
+    for bb in (16, 48, 224):
+        yield f"K6 pack_acbands budget {bb}", \
+            lambda bb=bb: pk.pack_acbands(luma, bands, params.ac, 0, Bp, bb), \
+            lambda bb=bb: pk.pack_acbands_ref(luma, bands, params.ac, 0, Bp,
+                                              bb), \
+            nbytes(luma, params.ac[0])
+    yield "K7 hist_count", lambda: ph.hist_count(luma, bands), \
+        lambda: ph.hist_count_ref(luma, bands), nbytes(luma)
 
 
 def uhd_inputs(dev):
@@ -436,12 +480,12 @@ def fused_concat_cases(dev, params, spec, stream, dcdiff, Bp, px, layout,
         lambda: pk.concat_rows_ref(*args), \
         string_bytes(bits) + nbytes(pos, bits), None
 
+
 def phase_kernels(dev):
     """Each kernel against its plain version on the flagship's tensors."""
     from tpuenc_torch.core.types import ColorType
     from tpuenc_torch.entropy import pallas_hist as ph
     from tpuenc_torch.entropy import pallas_pack as pk
-    from tpuenc_torch.entropy.huffopt import progressive_bands
     from tpuenc_torch.kernels import pallas_fdct, pipeline
     from tpuenc_torch.kernels.color_convert import to_planes
 
@@ -515,26 +559,19 @@ def phase_kernels(dev):
                   f"words)")
 
     # K6, K7, K9 on the progressive flagship's luma stream.
-    pconfig = progressive_encoder(dev)._config()
-    luma = pipeline.fn_cm(px, FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB, pconfig,
-                          params.reciprocals, params.corrections)[0]
-    B = luma.shape[1]
-    Bp = -(-B // 512) * 512
-    bands = tuple(progressive_bands(pconfig.progressive_scans))
-    print(f"  progressive luma stream: {B} blocks, padded to {Bp}, "
+    luma, Bp, bands = progressive_luma(dev, params, px)
+    print(f"  progressive luma stream: {luma.shape[1]} blocks, padded to {Bp}, "
           f"bands {bands}")
-    for block_budget in (16, 48):
-        got = check(
-            f"K6 pack_acbands budget {block_budget}",
-            lambda: pk.pack_acbands(luma, bands, params.ac, 0, Bp, block_budget),
-            lambda: pk.pack_acbands_ref(luma, bands, params.ac, 0, Bp,
-                                        block_budget),
-            nbytes(luma, params.ac[0]),
-        )
-        print(f"  K6 budget {block_budget}: cap_f {got[0].shape[2]}, "
-              f"overflow {int(got[2].item())}")
-    check("K7 hist_count", lambda: ph.hist_count(luma, bands),
-          lambda: ph.hist_count_ref(luma, bands), nbytes(luma))
+    for key, kernel, plain, read_bytes in acband_hist_cases(params, luma, Bp,
+                                                            bands):
+        got = check(key, kernel, plain, read_bytes)
+        if key.startswith("K6"):
+            cap_f = got[0].shape[2]
+            smem = 4 * (256 + len(bands) * K6_ROWS * cap_f) + 2 * 64 * K6_ROWS
+            print(f"  {key}: cap_f {cap_f}, overflow {int(got[2].item())}, "
+                  f"dynamic shared memory {smem} bytes (AC table, 64 x "
+                  f"{K6_ROWS} coefficients, tile {len(bands)} x {K6_ROWS} x "
+                  f"{cap_f} words)")
     check("K9 hist_sym", lambda: ph.hist_sym(luma, 1, 64, Bp),
           lambda: ph.hist_sym_ref(luma, 1, 64, Bp), nbytes(luma))
     return results

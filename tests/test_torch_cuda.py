@@ -298,6 +298,9 @@ ACBANDS = [
     ((1, 22), (22, 43), (43, 64)),            # the flagship's 4-scan plan
     ((1, 6), (6, 11), (11, 16), (16, 21)),    # four bands of a 13-scan plan
     ((1, 64),),                               # one band over every AC slot
+    ((1, 9), (9, 18), (18, 27), (27, 36), (36, 45), (45, 54), (54, 64)),
+    ((22, 43), (1, 22), (43, 64)),            # out of slot order
+    ((63, 64),),                              # the last slot alone
 ]
 
 
@@ -317,6 +320,51 @@ def test_k6_matches_plain(dev, bi, budget):
         assert torch.equal(g, w)
     if bi == 0:
         assert bool(got[2].item()) == (budget == 16)
+
+
+def _dense(B, seed):
+    """Blocks whose every AC slot holds a size 8-10 magnitude."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(200, 1000, (64, B)).astype(np.int16)
+    return q * np.where(rng.random((64, B)) < 0.5, -1, 1).astype(np.int16)
+
+
+# name: (bands, B, Bp, budget, blocks).  1001 rows of 11 words put band
+# 1's rows off a 16-byte boundary (p1_store's 4-byte path); the last case
+# is seven bands, one 65 words wide at 224, the largest tile (past the
+# default 48 KB of shared memory).
+K6_SHAPES = {
+    "one_block": (ACBANDS[0], 1, 1, 16, "mixed"),
+    "one_block_padded": (ACBANDS[0], 1, 130, 16, "mixed"),
+    "bp_partial_tile": (ACBANDS[0], 1001, 1100, 48, "mixed"),
+    "bp_unaligned_bands": (ACBANDS[0], 999, 1001, 16, "mixed"),
+    "all_zero_eob_only": (ACBANDS[0], 500, 512, 16, "zero"),
+    "dense_overflow": (ACBANDS[0], 300, 384, 16, "dense"),
+    "bands_with_gaps": (((1, 5), (63, 64), (10, 20)), 700, 768, 16, "mixed"),
+    "seven_bands_65_words": (((1, 34), (34, 36), (36, 40), (40, 48), (48, 56),
+                              (56, 60), (60, 64)), 700, 768, 224, "mixed"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K6_SHAPES))
+def test_k6_shapes_match_plain(dev, case):
+    bands, B, Bp, budget, kind = K6_SHAPES[case]
+    p = _params(dev)
+    q = {"mixed": lambda: _blocks(max(B, 20), 11)[:, 9:9 + B] if B < 20
+         else _blocks(B, 11),
+         "zero": lambda: np.zeros((64, B), np.int16),
+         "dense": lambda: _dense(B, 5)}[kind]()
+    q = torch.from_numpy(np.ascontiguousarray(q)).to(dev)
+    got = tpack.pack_acbands(q, bands, p.ac, 0, Bp, budget)
+    torch.cuda.synchronize()
+    want = tpack.pack_acbands_ref(q, bands, p.ac, 0, Bp, budget)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if kind == "zero":
+        eob_len = int(p.ac[0, 0].item()) >> 16
+        assert (got[1][:, :B] == eob_len).all()
+    if kind == "dense":
+        assert got[2].item() == 1
 
 
 def test_k6_empty_band_and_dc_path(dev):
@@ -357,6 +405,43 @@ def test_k7_matches_plain(dev, n_bands):
     torch.cuda.synchronize()
     assert th.hist_count.launches == n + 1
     assert torch.equal(got, th.hist_count_ref(q, bands))
+
+
+# name: (bands, B, blocks).  All-zero blocks count only EOBs; in the dense
+# ones every lane of a warp hits the same bin at every slot; 300,000
+# blocks are more than one resident wave of thread blocks, so the grid
+# strides.
+K7_SHAPES = {
+    "all_zero": (((1, 21), (21, 42), (42, 64)), 5000, "zero"),
+    "dense_same_bin": (((1, 21), (21, 42), (42, 64)), 5000, "ones"),
+    "dense": (((1, 21), (21, 42), (42, 64)), 3000, "dense"),
+    "one_block": (((1, 21), (21, 42), (42, 64)), 1, "mixed"),
+    "grid_strides": (((1, 21), (21, 42), (42, 64)), 300_000, "mixed"),
+    "eight_bands_reversed": (((56, 64), (48, 56), (40, 48), (32, 40),
+                              (24, 32), (16, 24), (8, 16), (1, 8)), 3001,
+                             "mixed"),
+    "out_of_order": (((22, 43), (1, 22), (43, 64)), 3001, "mixed"),
+    "bands_with_gaps": (((1, 5), (63, 64), (10, 20)), 3001, "mixed"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K7_SHAPES))
+def test_k7_shapes_match_plain(dev, case):
+    from tpuenc_torch.entropy import pallas_hist as th
+
+    bands, B, kind = K7_SHAPES[case]
+    q = {"mixed": lambda: _blocks(max(B, 20), 13)[:, 9:9 + B] if B < 20
+         else _blocks(B, 13),
+         "zero": lambda: np.zeros((64, B), np.int16),
+         "ones": lambda: np.ones((64, B), np.int16),
+         "dense": lambda: _dense(B, 6)}[kind]()
+    q = torch.from_numpy(np.ascontiguousarray(q)).to(dev)
+    got = th.hist_count(q, bands)
+    torch.cuda.synchronize()
+    want = th.hist_count_ref(q, bands)
+    assert torch.equal(got, want)
+    if kind == "zero":
+        assert (got[:, 273] == B).all() and not got[:, :273].any()
 
 
 @pytest.mark.parametrize("band", [(1, 64), (6, 40), (63, 64)])

@@ -107,6 +107,27 @@ def test_k9_matches_pallas(band):
         thist.ac_histogram_sym(torch.from_numpy(q), ss, se).numpy(), want)
 
 
+@pytest.mark.parametrize("bands", [((1, 22), (21, 43)),
+                                   ((1, 22), (22, 43), (1, 22)),
+                                   ((5, 10), (1, 64))], ids=str)
+def test_k7_rejects_overlapping_bands(bands):
+    """K7 walks a block's slots once for all its bands, so a slot belongs
+    to one band only: its wrapper raises on CPU tensors too."""
+    with pytest.raises(ValueError):
+        thist.hist_count(torch.from_numpy(_stream(40, 1)), bands)
+
+
+@pytest.mark.parametrize("order", [(2, 0, 1), (3, 2, 1, 0)], ids=str)
+def test_k7_band_order(order):
+    """Bands given out of slot order: row i of the counts is band i, the
+    sorted order's rows permuted."""
+    bands = ((1, 6), (6, 22), (22, 40), (40, 64))[:len(order)]
+    q = torch.from_numpy(_stream(300, 8))
+    raw = thist.hist_count(q, bands)
+    got = thist.hist_count(q, tuple(bands[i] for i in order))
+    assert torch.equal(got, raw[list(order)])
+
+
 @pytest.mark.parametrize("band", [(1, 64), (1, 1), (30, 41)])
 def test_plain_ac_histogram_matches(band):
     """device.ac_histogram (plain PyTorch) == tpuenc's XLA formulation and

@@ -126,6 +126,38 @@ def test_p1_q100_dense():
     np.testing.assert_array_equal(tw, jw)
 
 
+OVERLAPPING_BANDS = [
+    ((1, 22), (21, 43)),            # one slot in both
+    ((1, 22), (22, 43), (1, 22)),   # a band twice
+    ((5, 10), (1, 64)),             # one band inside another
+]
+
+
+@pytest.mark.parametrize("bands", OVERLAPPING_BANDS, ids=str)
+def test_pack_acbands_rejects_overlapping_bands(bands):
+    """K6 walks a block's slots once for all its bands, so a slot belongs
+    to one band only: its wrapper raises on CPU tensors too."""
+    q = torch.from_numpy(_blocks(40, 3))
+    with pytest.raises(ValueError):
+        tpack.pack_acbands(q, bands, _tparams().ac, 0, 64, 16)
+
+
+@pytest.mark.parametrize("order", [(1, 0, 2), (2, 1, 0), (1, 2, 0)], ids=str)
+@pytest.mark.parametrize("budget", [16, 48])
+def test_pack_acbands_band_order(order, budget):
+    """Bands given out of slot order: row i of the outputs is band i, the
+    sorted order's rows permuted, and the flag is the same."""
+    bands = ((1, 22), (22, 43), (43, 64))
+    q = torch.from_numpy(_blocks(150, 4))
+    ac = _tparams().ac
+    words, lens, ovf = tpack.pack_acbands(q, bands, ac, 0, 192, budget)
+    pw, pl, po = tpack.pack_acbands(q, tuple(bands[i] for i in order), ac, 0,
+                                    192, budget)
+    assert torch.equal(pw, words[list(order)])
+    assert torch.equal(pl, lens[list(order)])
+    assert torch.equal(po, ovf)
+
+
 def test_dc_diffs_match():
     """DC predictor with a restart interval and a per-block component
     pattern (_dc_prev_delta)."""

@@ -34,40 +34,6 @@ __device__ __forceinline__ int bit_length(uint32_t av) {
     return av == 0 ? 0 : 32 - __clz(av);
 }
 
-// Serial writer of one block's bit string into its own row of `cap`
-// words, used by K6 alone (K2 and K8 run pack_block below): items are
-// appended MSB first through a 64-bit accumulator; words past the capacity
-// are dropped (the overflow flags report that case) and finish()
-// zero-fills the rest of the row.
-struct BitWriter {
-    uint32_t* row;
-    int cap;
-    int w = 0;
-    int n = 0;          // bits held in acc, MSB-aligned at bit 63
-    uint64_t acc = 0;
-
-    // Append an MSB-aligned item of `len` <= 32 bits.
-    __device__ __forceinline__ void put(uint32_t word, int len) {
-        if (len <= 0) return;
-        acc |= (uint64_t)word << (32 - n);
-        n += len;
-        if (n >= 32) {
-            if (w < cap) row[w] = (uint32_t)(acc >> 32);
-            ++w;
-            acc <<= 32;
-            n -= 32;
-        }
-    }
-
-    __device__ __forceinline__ void finish() {
-        if (n > 0) {
-            if (w < cap) row[w] = (uint32_t)(acc >> 32);
-            ++w;
-        }
-        for (; w < cap; ++w) row[w] = 0;
-    }
-};
-
 // ---------------------------------------------------------------------------
 // fDCT + zigzag + quantize of one 8x8 block held in registers (K1, K8).
 //
@@ -196,8 +162,10 @@ __device__ __forceinline__ void quantize_zigzag(
 }
 
 // ---------------------------------------------------------------------------
-// P1 of one block (K2, K8): the body of pallas_pack._p1_tile_body, without
-// branches, written into a row that is zero beforehand.
+// P1 of one block: the body of pallas_pack._p1_tile_body, without
+// branches, written into a row that is zero beforehand.  K2 and K8 run
+// pack_block; K6 runs its own walk over several bands with the same slot
+// item (ac_item) and the same appender (append).
 // ---------------------------------------------------------------------------
 
 struct P1Caps {
@@ -220,6 +188,33 @@ __device__ __forceinline__ void append(uint32_t word, int len, uint32_t& cur,
     nb -= full ? 32 : 0;
 }
 
+// The AC item of slot k holding v (pallas_pack._ac_items): for a nonzero
+// v its (run & 15, size) code and magnitude bits, run counted from the
+// band's previous nonzero `prev`, which moves to k; for a zero v a ZRL code
+// where the run reaches 15 mod 16 and `zrl_ok` (a nonzero of the band lies
+// past k); else nothing.  Returns the item's length and sets its
+// MSB-aligned `word`.  The symbol (run & 15) << 4 | size stays below 256
+// (size 16 only sets a bit the run's nibble already has), so it indexes
+// the AC table `act` (entries size << 16 | code) directly.
+__device__ __forceinline__ int ac_item(int v, int k, bool zrl_ok,
+                                       const uint32_t* act, uint32_t zrl_w,
+                                       int zrl_len, int& prev,
+                                       uint32_t& word) {
+    const bool nz = v != 0;
+    const int run = k - prev - 1;
+    const int size = bit_length((uint32_t)(v < 0 ? -v : v));
+    const uint32_t extra = (uint32_t)(v + (v >> 31)) & ((1u << size) - 1u);
+    const uint32_t lut = nz ? act[((run & 15) << 4) | size] : 0u;
+    const int ilen = (int)(lut >> 16) + size;
+    // ilen is 0 only where v is 0; the funnel shift wraps 32 to 0.
+    const uint32_t iword = __funnelshift_l(
+        0u, ((lut & 0xFFFFu) << size) | extra, 32 - ilen);
+    const bool zrl_here = !nz && (run & 15) == 15 && zrl_ok;
+    word = nz ? iword : (zrl_here ? zrl_w : 0u);
+    prev = nz ? k : prev;
+    return nz ? ilen : (zrl_here ? zrl_len : 0);
+}
+
 // The block's bit string into `row` (cap_final words, zero beforehand;
 // words past it are dropped) and its length in bits: the DC difference
 // item (when emit_dc), then for each nonzero coefficient of the band
@@ -229,10 +224,8 @@ __device__ __forceinline__ void append(uint32_t word, int len, uint32_t& cur,
 // flag: when an aligned window of 8/16/32/64 slot items exceeds 32 x its
 // cap, or the block with its EOB exceeds 32 x cap_final.  `dct` is the
 // block's DC table row (16 entries), `act` its AC table (256); entries are
-// size << 16 | code.  Every slot's item is computed and selected, and its
-// bits are appended to a 32-bit word by funnel shifts.  The symbol
-// (run & 15) << 4 | size stays below 256 (size 16 only sets a bit the run's
-// nibble already has), so it indexes the AC table directly.
+// size << 16 | code.  Every slot's item (ac_item) is computed and
+// selected, and its bits are appended to a 32-bit word by funnel shifts.
 __device__ __forceinline__ int pack_block(const int (&c)[64], int32_t diff,
                                           bool emit_dc, int ss, int se,
                                           const uint32_t* dct,
@@ -266,20 +259,7 @@ __device__ __forceinline__ int pack_block(const int (&c)[64], int32_t diff,
             len = (int)(lut >> 16) + size;
             word = shl32(shl32(lut & 0xFFFF, size) | extra, 32 - len);
         } else if (k >= ss && k < se) {
-            const int v = c[k];
-            const bool nz = v != 0;
-            const int run = k - prev - 1;
-            const int size = bit_length((uint32_t)(v < 0 ? -v : v));
-            const uint32_t extra = (uint32_t)(v + (v >> 31)) & ((1u << size) - 1u);
-            const uint32_t lut = nz ? act[((run & 15) << 4) | size] : 0u;
-            const int ilen = (int)(lut >> 16) + size;
-            // ilen is 0 only where v is 0; the funnel shift wraps 32 to 0.
-            const uint32_t iword = __funnelshift_l(
-                0u, ((lut & 0xFFFFu) << size) | extra, 32 - ilen);
-            const bool zrl_here = !nz && (run & 15) == 15 && k < last;
-            len = nz ? ilen : (zrl_here ? zrl_len : 0);
-            word = nz ? iword : (zrl_here ? zrl_w : 0u);
-            prev = nz ? k : prev;
+            len = ac_item(c[k], k, k < last, act, zrl_w, zrl_len, prev, word);
         }
         append(word, len, cur, nb, w, row, cap);
         s8 += len;
@@ -315,18 +295,19 @@ __device__ __forceinline__ int pack_block(const int (&c)[64], int32_t diff,
 
 
 // ---------------------------------------------------------------------------
-// The staged P1 tile (K2, K8).  A thread block packs kP1Threads consecutive
-// blocks, one a thread.  It stages the scan's AC tables (those the pattern
-// names, <= 8 x 256 entries) and DC table rows (128) in shared memory and
-// zeroes a shared tile of kP1Threads x capB words (p1_stage); each thread
-// writes its block's string with pack_block into its row of the tile
-// (p1_pack); after a barrier the tile's rows, which are consecutive rows
-// of `words`, go out, zero tails and padding rows (b >= n_blocks)
-// included, as one contiguous run of 16-byte stores, consecutive across
-// the threads (p1_store).  The kernels differ only in how a thread gets
-// its 64 coefficients and its DC difference.  cap_final is odd at the
-// budgets the encoder uses (19, 51, 65), so the threads' rows start on
-// different banks.
+// The staged P1 tile (K2, K8; K6 packs several bands into a tile of its
+// own and stores it with p1_store).  A thread block packs kP1Threads
+// consecutive blocks, one a thread.  It stages the scan's AC tables (those
+// the pattern names, <= 8 x 256 entries) and DC table rows (128) in shared
+// memory and zeroes a shared tile of kP1Threads x capB words (p1_stage);
+// each thread writes its block's string with pack_block into its row of
+// the tile (p1_pack); after a barrier the tile's rows, which are
+// consecutive rows of `words`, go out, zero tails and padding rows
+// (b >= n_blocks) included, as one contiguous run of 16-byte stores,
+// consecutive across the threads (p1_store).  The kernels differ only in
+// how a thread gets its 64 coefficients and its DC difference.  cap_final
+// is odd at the budgets the encoder uses (19, 51, 65), so the threads'
+// rows start on different banks.
 // ---------------------------------------------------------------------------
 
 constexpr int kP1Threads = 128;  // blocks per tile
@@ -419,24 +400,27 @@ __device__ __forceinline__ void p1_pack(const P1Tile& tile, const P1Scan& s,
     }
 }
 
-// The tile's rows [b0, min(b0 + kP1Threads, Bp)) out to `words` (Bp x
-// capB); after the barrier that follows p1_pack.  b0 x capB is a multiple
-// of 4 words, so the 16-byte stores stay aligned when `words` is.
-__device__ __forceinline__ void p1_store(const P1Tile& tile, int capB,
-                                         long long b0, long long Bp,
+// A tile's `tile_rows` rows of capB words (`rows`, in shared memory; the
+// thread block has tile_rows threads) out to rows [b0, min(b0 + tile_rows,
+// Bp)) of `words` (Bp x capB); after the barrier that follows the packing.
+// b0 is a multiple of tile_rows, which is a multiple of 4, so b0 x capB is
+// a multiple of 4 words and the 16-byte stores stay aligned when `words`
+// is.  K2 and K8 store their one tile with it, K6 each band's.
+__device__ __forceinline__ void p1_store(const uint32_t* rows, int tile_rows,
+                                         int capB, long long b0, long long Bp,
                                          uint32_t* __restrict__ words) {
     const int t = threadIdx.x;
-    const long long rows = Bp - b0 < kP1Threads ? Bp - b0 : kP1Threads;
-    const int n = (int)rows * capB;
+    const long long n_rows = Bp - b0 < tile_rows ? Bp - b0 : tile_rows;
+    const int n = (int)n_rows * capB;
     uint32_t* dst = words + b0 * capB;
     int head = 0;  // words stored by the 16-byte stores
     if ((reinterpret_cast<uintptr_t>(words) & 15) == 0) {
-        const uint4* src4 = reinterpret_cast<const uint4*>(tile.rows);
+        const uint4* src4 = reinterpret_cast<const uint4*>(rows);
         uint4* dst4 = reinterpret_cast<uint4*>(dst);
-        for (int i = t; i < n / 4; i += kP1Threads) dst4[i] = src4[i];
+        for (int i = t; i < n / 4; i += tile_rows) dst4[i] = src4[i];
         head = n / 4 * 4;
     }
-    for (int i = head + t; i < n; i += kP1Threads) dst[i] = tile.rows[i];
+    for (int i = head + t; i < n; i += tile_rows) dst[i] = rows[i];
 }
 
 // ---------------------------------------------------------------------------
@@ -501,12 +485,15 @@ __device__ __forceinline__ uint32_t gather_word(const uint32_t* __restrict__ X,
 }
 
 // What a launcher needs of a card to size a grid that fills it once,
-// asked once per device: its SMs, the shared memory of one SM, and what
-// the runtime reserves of it per thread block.
+// asked once per device: its id, its SMs, the shared memory of one SM,
+// what the runtime reserves of it per thread block, and the most a thread
+// block may opt in to (above the default 48 KB; cudaFuncSetAttribute).
 struct CardLimits {
+    int device = 0;
     int sms = 0;
     int smem_per_sm = 0;
     int reserved_per_block = 0;
+    int smem_optin = 0;
 };
 
 constexpr int kMaxDevices = 64;
@@ -520,11 +507,14 @@ inline const CardLimits* card_limits() {
     if (dev < 0 || dev >= kMaxDevices) return nullptr;
     std::call_once(once[dev], [dev] {
         CardLimits& c = limits[dev];
+        c.device = dev;
         cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, dev);
         cudaDeviceGetAttribute(&c.smem_per_sm,
                                cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
         cudaDeviceGetAttribute(&c.reserved_per_block,
                                cudaDevAttrReservedSharedMemoryPerBlock, dev);
+        cudaDeviceGetAttribute(&c.smem_optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     });
     return &limits[dev];
 }

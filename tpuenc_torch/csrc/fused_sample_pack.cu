@@ -128,7 +128,8 @@ fused_sample_pack_kernel(const int16_t* __restrict__ x, long long n_blocks,
     }
     tpuenc::p1_pack(tile, s, c, diff, b, n_blocks, Bp, lens, overflow);
     __syncthreads();
-    tpuenc::p1_store(tile, s.caps.cap_final, b0, Bp, words);
+    tpuenc::p1_store(tile.rows, kP1Threads, s.caps.cap_final, b0, Bp,
+                     words);
 }
 
 }  // namespace

@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from .. import cuda_lib
-from .pallas_pack import _bit_length
+from .pallas_pack import _bit_length, check_bands
 
 N_BINS = 16 * 17 + 2  # K7's raw counts per band: joint, ZRL total, EOB count
 MAX_BANDS = 8
@@ -64,9 +64,9 @@ def _count(idx, n: int):
 
 def hist_count_ref(q, bands):
     """Plain version of K7: ``q`` int16 (64, B); ``bands`` up to 8
-    non-empty ``(ss, se)``.  Returns int32 (n_bands, 274): per band the
-    16 x 17 joint (run & 15, size) counts row-major, the ZRL total and
-    the EOB count."""
+    non-empty ``(ss, se)`` that do not overlap, in any order.  Returns
+    int32 (n_bands, 274): per band (row i for band i) the 16 x 17 joint
+    (run & 15, size) counts row-major, the ZRL total and the EOB count."""
     out = torch.zeros((len(bands), N_BINS), dtype=torch.int64, device=q.device)
     for b, (ss, se) in enumerate(bands):
         nz, run, size, last = _band_symbols(q, ss, se)
@@ -78,11 +78,10 @@ def hist_count_ref(q, bands):
 
 def hist_count(q, bands):
     """K7 on ``q``'s device: the CUDA kernel for CUDA tensors, the plain
-    version (:func:`hist_count_ref`, same contract) for CPU tensors."""
-    bands = tuple((int(ss), int(se)) for ss, se in bands)
-    if not 1 <= len(bands) <= MAX_BANDS or any(not 0 <= ss < se <= 64
-                                               for ss, se in bands):
-        raise ValueError(f"hist_count: bands {bands}")
+    version (:func:`hist_count_ref`, same contract) for CPU tensors.
+    Both raise ValueError for more than 8 bands, an empty one or two that
+    overlap (``pallas_pack.check_bands``)."""
+    bands = check_bands("hist_count", bands, MAX_BANDS)
     if not cuda_lib.on_cuda(q, "hist_count"):
         return hist_count_ref(q, bands)
     dev = q.device

@@ -547,7 +547,8 @@ def pack_acbands_ref(q, bands, ac_tab, tab: int, Bp: int, budget: int):
     """Plain version of K6.
 
     ``q``: int16 (64, B) coefficients of one component; ``bands``: up to
-    7 non-empty spectral bands ``(ss, se)``; ``ac_tab``: int32 (T, 256)
+    7 non-empty spectral bands ``(ss, se)`` that do not overlap, in any
+    order (band i is row i of the outputs); ``ac_tab``: int32 (T, 256)
     packed AC tables, of which ``tab`` codes every band; ``Bp >= B``
     output rows; ``budget``: the block-level budget (callers pass
     ``max(budget, 16)``).  Returns ``(words int32 (n_bands, Bp, cap_f),
@@ -592,9 +593,26 @@ def pack_acbands_ref(q, bands, ac_tab, tab: int, Bp: int, budget: int):
     return words, lens, ovf.to(torch.int32).reshape(1)
 
 
+def check_bands(name: str, bands, max_bands: int):
+    """``bands`` as a tuple of ``(ss, se)`` int pairs; ValueError unless
+    there are 1 to ``max_bands`` of them, each non-empty within [0, 64),
+    and no two overlap.  K6 and K7 walk a block's slots once for all its
+    bands, so a slot belongs to one band only."""
+    bands = tuple((int(ss), int(se)) for ss, se in bands)
+    spans = sorted(bands)
+    if (not 1 <= len(bands) <= max_bands
+            or any(not 0 <= ss < se <= 64 for ss, se in bands)
+            or any(a[1] > b[0] for a, b in zip(spans, spans[1:]))):
+        raise ValueError(f"{name}: bands {bands}")
+    return bands
+
+
 def pack_acbands(q, bands, ac_tab, tab: int, Bp: int, budget: int):
     """K6 on ``q``'s device: the CUDA kernel for CUDA tensors, the plain
-    version (:func:`pack_acbands_ref`, same contract) for CPU tensors."""
+    version (:func:`pack_acbands_ref`, same contract) for CPU tensors.
+    Both raise ValueError for more than 7 bands, an empty one or two that
+    overlap (:func:`check_bands`)."""
+    bands = check_bands("pack_acbands", bands, 7)
     if not cuda_lib.on_cuda(q, "pack_acbands"):
         return pack_acbands_ref(q, bands, ac_tab, tab, Bp, budget)
     dev = q.device
@@ -606,9 +624,6 @@ def pack_acbands(q, bands, ac_tab, tab: int, Bp: int, budget: int):
         raise ValueError(f"Bp {Bp} < B {B}")
     if not 0 <= tab < n_tabs:
         raise ValueError(f"AC table {tab} of {n_tabs}")
-    if not 1 <= len(bands) <= 7 or any(not 0 <= ss < se <= 64
-                                       for ss, se in bands):
-        raise ValueError(f"pack_acbands: bands {bands}")
     args = []
     plans = [band_tree_caps(budget, ss, se) for ss, se in bands]
     for (ss, se), (row0, _, gen_caps, cap_band) in zip(bands, plans):
