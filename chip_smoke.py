@@ -45,11 +45,32 @@ Phases, each printing its own lines and its wall seconds:
    fused_p1=True)``, the budget memo cleared first: phase 5's bytes at
    phase 5's rung, K8 and K3-K5 launched and K1 and K2 not, warm
    end-to-end MP/s (median of 7) in turns with phase 5's encoder (split,
-   fused, fused, split), and per-stage times.
+   fused, fused, split), and per-stage times;
+8. ``encode_batch`` on each of its routes, the budget memo cleared before
+   each case: (a) 8 flagship images (``make_rgb`` seeds 42-49) on the
+   single program, image 0 equal to phase 5's bytes, K1 launched 3 times
+   per batch, K2, K3 and K5 once per rung tried and K4 once per rung whose
+   merge folds, its per-stage times (its upload beside one staged in
+   page-locked memory); (b) BASELINE.md's config 1, 16 x 512x512 RGB q90,
+   on the single program; (c) 4 flagship images in progressive mode, image
+   by image (K6 per image); (d) 4 flagship images with ``fused_p1=True``
+   and restart interval 64 (which does not divide 56,250 MCUs), image by
+   image through K8, equal to the split encoder's files; (e) BASELINE.md's
+   config 3, 2 x 3840x2160 with optimized tables, image by image (K7).
+   Each case: every file equal to its own ``encode`` on the card, the
+   route's kernels launched and no other, the peak device memory of its
+   first batch, warm MP/s (median of 5) in turns with a loop of per-image
+   encodes (batch, loop, loop, batch), and the device's busy share and
+   its H2D / D2H copies over one batch (``torch.profiler``).  Then the
+   kernels at the shapes no earlier phase gives them, against their plain
+   versions as in phase 3: K1 on (a)'s and (b)'s luma blocks, K2, K3, K4
+   (where the plan folds) and K5 at (a)'s and (b)'s rungs over the whole
+   batch, and K7 on one of (e)'s 4K luma streams.
 
-It prints a JSON line of the kernels, the card's name and power limit,
-and last ``{"ok": true, "device": {...}}``.  Any failure raises, so the
-exit code is not 0 and no result line is printed.  ``kernel_ab.py`` holds
+It prints a JSON line of the kernels (with every shape each was checked
+at), the card's name and power limit, and last ``{"ok": true, "device":
+{...}}``.  Any failure raises, so the exit code is not 0 and no result
+line is printed.  ``kernel_ab.py`` holds
 K2-K8 against another checkout's on one card.
 """
 
@@ -481,6 +502,34 @@ def fused_concat_cases(dev, params, spec, stream, dcdiff, Bp, px, layout,
         string_bytes(bits) + nbytes(pos, bits), None
 
 
+def check_kernel(results, key, kernel, plain, read_bytes, reps=10):
+    """One kernel case: the kernel's output against its plain version's
+    (tolerance 0), its time and device time, the plain version's time and
+    the bound, printed and kept in ``results[key]``.  Returns the
+    kernel's output."""
+    got = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    err = max_abs_err(got, want)
+    if err != 0:
+        raise AssertionError(f"{key}: kernel differs from plain, max |err| {err}")
+    ms = cuda_ms(kernel, reps)
+    device_ms = cuda_ms(kernel, reps, queued=True)
+    plain_ms = cuda_ms(plain, reps)
+    bound = bound_ms(read_bytes, got)
+    pr4 = PR4_MS.get(key)
+    before = REPLACED_DEVICE_MS.get(key)
+    print(f"  {key:44s} max|err| {err}  kernel {ms:9.4f} ms"
+          + (f" (first design {pr4} ms)" if pr4 else "")
+          + f"  plain {plain_ms:9.4f} ms ({plain_ms / ms:.1f}x)"
+          f"  device {device_ms:9.4f} ms"
+          + (f" (before {before} ms)" if before else "")
+          + f"  bound {bound:8.5f} ms ({bound / device_ms:.1%} of device)")
+    results[key] = {"err": err, "ms": ms, "device_ms": device_ms,
+                    "plain_ms": plain_ms, "bound": bound}
+    return got
+
+
 def phase_kernels(dev):
     """Each kernel against its plain version on the flagship's tensors."""
     from tpuenc_torch.core.types import ColorType
@@ -492,28 +541,8 @@ def phase_kernels(dev):
     params, spec, stream, dcdiff, Bp, px, layout, config = flagship_inputs(dev)
     results = {}
 
-    def check(key, kernel, plain, read_bytes, reps=10):
-        got = kernel()
-        torch.cuda.synchronize()
-        want = plain()
-        err = max_abs_err(got, want)
-        if err != 0:
-            raise AssertionError(f"{key}: kernel differs from plain, max |err| {err}")
-        ms = cuda_ms(kernel, reps)
-        device_ms = cuda_ms(kernel, reps, queued=True)
-        plain_ms = cuda_ms(plain, reps)
-        bound = bound_ms(read_bytes, got)
-        pr4 = PR4_MS.get(key)
-        before = REPLACED_DEVICE_MS.get(key)
-        print(f"  {key:44s} max|err| {err}  kernel {ms:9.4f} ms"
-              + (f" (PR 4 {pr4} ms)" if pr4 else "")
-              + f"  plain {plain_ms:9.4f} ms ({plain_ms / ms:.1f}x)"
-              f"  device {device_ms:9.4f} ms"
-              + (f" (before {before} ms)" if before else "")
-              + f"  bound {bound:8.5f} ms ({bound / device_ms:.1%} of device)")
-        results[key] = {"err": err, "ms": ms, "device_ms": device_ms,
-                        "plain_ms": plain_ms, "bound": bound}
-        return got
+    def check(*case):
+        return check_kernel(results, *case)
 
     def same_as_split(key, got, split):
         err = max_abs_err(got, split)
@@ -667,6 +696,31 @@ def counted_kernels():
             pk.fused_sample_pack, ph.hist_sym]
 
 
+def counted(run):
+    """``run()`` with every launch count set to 0 just before it; returns
+    (its result, {wrapper name: launches})."""
+    kernels = counted_kernels()
+    for fn in kernels:
+        fn.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, {fn.__name__: fn.launches for fn in kernels}
+
+
+def check_launches(launches, required, absent):
+    idle = [k for k in required if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on the path: {idle}")
+    extra = [k for k in absent if launches[k] != 0]
+    if extra:
+        raise AssertionError(f"kernels launched off the path: {extra}")
+
+
+def check_jpeg(out):
+    if out[:2] != b"\xff\xd8" or out[-2:] != b"\xff\xd9":
+        raise AssertionError("output is not a JPEG stream")
+
+
 def drive(enc, rgb, required, absent=(), path="device-v2"):
     """One encode of ``rgb`` with every launch count set to 0 just before
     it; returns (bytes, {wrapper name: launches}) and checks that it ran
@@ -674,24 +728,14 @@ def drive(enc, rgb, required, absent=(), path="device-v2"):
     ``absent`` one did not."""
     from tpuenc_torch import ColorType
 
-    counted = counted_kernels()
-    for fn in counted:
-        fn.launches = 0
-    out = enc.encode(rgb, FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB)
-    torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in counted}
+    out, launches = counted(
+        lambda: enc.encode(rgb, FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB))
     print(f"  {len(out)} bytes, path {enc.last_encode_path}, budget rung "
           f"{enc.last_budget}, launches {launches}")
     if enc.last_encode_path != path:
         raise AssertionError(f"encode ran on {enc.last_encode_path}, want {path}")
-    idle = [k for k in required if launches[k] == 0]
-    if idle:
-        raise AssertionError(f"kernels never launched on the path: {idle}")
-    extra = [k for k in absent if launches[k] != 0]
-    if extra:
-        raise AssertionError(f"kernels launched off the path: {extra}")
-    if out[:2] != b"\xff\xd8" or out[-2:] != b"\xff\xd9":
-        raise AssertionError("output is not a JPEG stream")
+    check_launches(launches, required, absent)
+    check_jpeg(out)
     return out, launches
 
 
@@ -875,6 +919,413 @@ def phase_progressive(dev):
     return launches
 
 
+# Phase 8's BASELINE.md configurations (benchmarks/baseline_configs.py):
+# config 1, 16 x 512x512 RGB q90 (:26-36), and config 3, optimized tables
+# on a batch of 4K images (:59-75).
+BASELINE1 = (16, 512, 512)
+BASELINE3 = (2, UHD_W, UHD_H)
+
+
+def host_median(fn, reps=5):
+    """Median host-clock seconds of ``reps`` warm calls of ``fn``, each
+    ended by a synchronise, and the runs."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), times
+
+
+def batch_vs_loop(enc, loop_enc, imgs, w, h):
+    """Warm MP/s of ``enc.encode_batch(imgs)`` and of a loop of
+    ``loop_enc.encode`` over the same images, in turns (batch, loop,
+    loop, batch), each turn the median of 5 host-clock runs."""
+    from tpuenc_torch import ColorType
+
+    runs = {"batch": lambda: enc.encode_batch(imgs, w, h, ColorType.RGB),
+            "loop": lambda: [loop_enc.encode(im, w, h, ColorType.RGB)
+                             for im in imgs]}
+    mp = len(imgs) * w * h / 1e6
+    out = {"batch": [], "loop": []}
+    for turn in ("batch", "loop", "loop", "batch"):
+        med, times = host_median(runs[turn])
+        out[turn].append(mp / med)
+        print(f"    {turn:5s} (warm, median of 5) {med * 1e3:9.3f} ms = "
+              f"{mp / med:7.1f} MP/s (runs ms: "
+              f"{' '.join(f'{t * 1e3:.3f}' for t in times)})")
+    return out
+
+
+def _union(intervals):
+    merged = []
+    for a, b in sorted(intervals):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return merged
+
+
+def device_timeline(run, label="tpuenc batch"):
+    """One call of ``run`` under ``torch.profiler``: the device's busy
+    share of the call's host span (the union of every kernel, copy and
+    fill on the card over the span), its kernels, and the number and time
+    of its host-to-device and device-to-host copies.  None where the
+    profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(label):
+            run()
+            torch.cuda.synchronize()
+    events = prof.events()
+    span = [e.time_range for e in events
+            if e.name == label and e.device_type == DeviceType.CPU]
+    device = [(e.name, e.time_range.start, e.time_range.end) for e in events
+              if e.device_type == DeviceType.CUDA and e.name != label]
+    if not span or not device:
+        return None
+    t0, t1 = span[0].start, span[0].end
+    busy = sum(max(0.0, min(t1, b) - max(t0, a))
+               for a, b in _union([(a, b) for _, a, b in device]))
+    out = {"span_ms": (t1 - t0) / 1e3, "busy": busy / (t1 - t0),
+           "kernels": sum(1 for n, _, _ in device
+                          if not n.startswith(("Memcpy", "Memset")))}
+    for kind in ("HtoD", "DtoH"):
+        copies = [b - a for n, a, b in device
+                  if n.startswith("Memcpy") and kind in n]
+        out[kind] = (len(copies), sum(copies) / 1e3)
+    return out
+
+
+def batch_stream(dev, enc, imgs, w, h):
+    """The single program's inputs for ``imgs`` as the route makes them:
+    the (N, H, W, 3) pixels uploaded image by image, the params, the
+    interleaved spec with segments of the interval or of one image, the
+    segments per image and the batch's MCU stream."""
+    from tpuenc_torch import ColorType
+    from tpuenc_torch.entropy import device_encode as de
+    from tpuenc_torch.kernels import pipeline
+
+    config = enc._config()
+    params = enc._default_tables(config)[2]
+    layout, ((_, spec, _),), _ = de._plan(w, h, ColorType.RGB, config)
+    per_image = layout["mcu_count"] * len(layout["mcu_block_comps"])
+    spec = spec._replace(seg_blocks=spec.seg_blocks or per_image)
+    px = upload_pageable(dev, imgs)
+    (stream,) = pipeline.fn_cm(px, w, h, ColorType.RGB, config,
+                               params.reciprocals, params.corrections,
+                               batched=True)
+    return px, params, spec, per_image // spec.seg_blocks, stream
+
+
+def upload_pageable(dev, imgs):
+    """The single program's upload: each image from its pageable array
+    into its slot of one (N, H, W, 3) tensor on ``dev``."""
+    px = torch.empty((len(imgs), *imgs[0].shape), dtype=torch.uint8,
+                     device=dev)
+    for i, im in enumerate(imgs):
+        px[i].copy_(torch.from_numpy(im))
+    return px
+
+
+def upload_staged(dev, imgs, pinned):
+    """The upload it was measured against: each image copied into the
+    page-locked ``pinned`` (N, H, W, 3) buffer on the host, then sent
+    without blocking, so one image's copy to the card overlaps the next
+    one's host copy."""
+    px = torch.empty((len(imgs), *imgs[0].shape), dtype=torch.uint8,
+                     device=dev)
+    for i, im in enumerate(imgs):
+        np.copyto(pinned[i].numpy(), im)
+        px[i].copy_(pinned[i], non_blocking=True)
+    return px
+
+
+def batch_stage_times(dev, enc, imgs, w, h):
+    """Stage times of the single-program route on ``imgs`` at its learned
+    rung: the upload of the batch (the route's pageable one beside one
+    staged in page-locked memory), the batch's coefficients (K1 x3), P1
+    (DC differences + K2), P2-P4, pack + meta (CUDA events, median of 10),
+    the meta copy, the stream's copy into the encoder's page-locked buffer
+    and the host finish per image (host clock, median of 5)."""
+    from tpuenc_torch import ColorType
+    from tpuenc_torch.entropy import device_encode as de
+    from tpuenc_torch.entropy import pallas_pack as pk
+    from tpuenc_torch.kernels import pipeline
+
+    n = len(imgs)
+    budget = enc.last_budget
+    px, params, spec, spi, stream = batch_stream(dev, enc, imgs, w, h)
+    pinned = torch.empty(px.shape, dtype=torch.uint8, pin_memory=True)
+    st = {}
+    for turn in ("", " again"):
+        st[f"upload: pageable, image by image (the route's){turn}"] = \
+            cuda_ms(lambda: upload_pageable(dev, imgs))
+        st[f"upload: staged in page-locked memory{turn}"] = cuda_ms(
+            lambda: upload_staged(dev, imgs, pinned))
+    coeffs = (px, w, h, ColorType.RGB, enc._config(), params.reciprocals,
+              params.corrections)
+    st["coefficients (color, pad, blockify, K1 x3, MCU order)"] = cuda_ms(
+        lambda: pipeline.fn_cm(*coeffs, batched=True))
+    st["P1: DC diffs + K2"] = cuda_ms(
+        lambda: pk.scan_pack_blocks(stream, spec, params.dc, params.ac, budget))
+    words, lens, _ = pk.scan_pack_blocks(stream, spec, params.dc, params.ac,
+                                         budget)
+    st["P2-P4: K3 + K4 + K5"] = cuda_ms(
+        lambda: pk.merge_pack_stream(words, lens, budget))
+    plan = [(0, spec, None)]
+    st["pack + meta (P1-P4, seg bits)"] = cuda_ms(
+        lambda: de._pack_scans_v2((stream,), plan, params, budget))
+    buf, meta = de._pack_scans_v2((stream,), plan, params, budget)
+    st["meta: D2H of the overflow flag and segment bits"] = cuda_ms(meta.cpu)
+    meta_np = meta.cpu().numpy()
+    host = enc._pinned.words((int(meta_np[1]) + 31) >> 5)
+    med, _ = host_median(lambda: host.copy_(buf[:host.numel()]))
+    st[f"D2H of the stream into page-locked memory, {4 * host.numel()} bytes "
+       f"(host clock)"] = med * 1e3
+    seg_bits = meta_np[2:]
+    image_meta = np.concatenate([meta_np[:1],
+                                 seg_bits.reshape(n, spi).sum(1), seg_bits])
+    med, _ = host_median(lambda: de._finish_scans_v2(host, image_meta, n,
+                                                     [spi] * n))
+    st["host: realign/stuff, per image (host clock)"] = med * 1e3 / n
+    for k, v in st.items():
+        print(f"    {k:56s} {v:9.4f} ms")
+
+
+def pack_merge_cases(params, spec, stream, budget, label):
+    """K2, K3, K4 (where the merge plan folds) and K5 on ``stream`` as
+    ``_pack_scans_v2`` runs them at ``budget``: yields ``(key, kernel,
+    plain, read_bytes)`` in order, each case's inputs made by the kernel
+    of the case before it."""
+    from tpuenc_torch.entropy import pallas_pack as pk
+
+    Bp = -(-stream.shape[1] // 512) * 512
+    dcdiff = pk.dc_diffs_from_dc(stream[0], spec)
+    args = (stream.contiguous(), dcdiff, params.dc, params.ac, spec, Bp,
+            max(budget, 16))
+    yield f"K2 pack_blocks {label}", lambda: pk.pack_blocks(*args), \
+        lambda: pk.pack_blocks_ref(*args), \
+        nbytes(stream, dcdiff, params.dc, params.ac)
+    words, lens, _ = pk.pack_blocks(*args)
+    n_sub = 128
+    chunk, n2, caps, caps_f = pk.merge_plan(Bp, words.shape[1], budget, n_sub)
+    margs = (words, lens, chunk, n_sub * n2, caps, caps[-1])
+    yield f"K3 merge_chunks {label}", lambda: pk.merge_chunks(*margs), \
+        lambda: pk.merge_rows_ref(*margs), string_bytes(lens) + nbytes(lens)
+    rows, bits, _ = pk.merge_chunks(*margs)
+    cap = caps[-1]
+    if caps_f is not None:
+        fargs = (rows, bits, n2, n_sub, caps_f, caps_f[-1])
+        yield f"K4 fold_rows {label}", lambda: pk.fold_rows(*fargs), \
+            lambda: pk.merge_rows_ref(*fargs), \
+            string_bytes(bits) + nbytes(bits)
+        rows, bits, _ = pk.fold_rows(*fargs)
+        cap = caps_f[-1]
+    pos = torch.cumsum(bits.to(torch.int64), 0) - bits
+    cargs = (rows, pos, bits, -(-(rows.shape[0] * cap + cap + 256) // 128) * 128)
+    yield f"K5 concat_rows {label}", lambda: pk.concat_rows(*cargs), \
+        lambda: pk.concat_rows_ref(*cargs), string_bytes(bits) + nbytes(pos, bits)
+
+
+def batch_kernel_checks(dev, enc, imgs, w, h, results, label):
+    """The single program's kernels at the batch's shapes against their
+    plain versions (tolerance 0): K1 on the batch's luma blocks, then K2,
+    K3, K4 (where the plan folds) and K5 at the route's rung."""
+    from tpuenc_torch import ColorType
+    from tpuenc_torch.kernels import pallas_fdct, pipeline
+
+    px, params, spec, _, stream = batch_stream(dev, enc, imgs, w, h)
+    luma = pipeline._sample_streams(px, w, h, ColorType.RGB, enc._config(),
+                                    batched=True)[3][0]
+    r, c = params.reciprocals[0], params.corrections[0]
+    print(f"  kernels at the batch's shapes: luma {luma.shape[1]} blocks, "
+          f"stream {stream.shape[1]} blocks, rung {enc.last_budget}")
+    check_kernel(results, f"K1 fdct_quantize {label}",
+                 lambda: pallas_fdct.fdct_quantize(luma, r, c),
+                 lambda: pallas_fdct.fdct_quantize_ref(luma, r, c),
+                 nbytes(luma, r, c))
+    for case in pack_merge_cases(params, spec, stream, enc.last_budget, label):
+        check_kernel(results, *case)
+
+
+def batch_case(dev, title, make, imgs, w, h, path, required, absent,
+               check=None):
+    """One batch through ``make(dev).encode_batch``, the budget memo
+    cleared first and every launch count set to 0 just before it: the
+    route is ``path``, each ``required`` wrapper launched and each
+    ``absent`` one did not, and every file equals its own ``encode`` on
+    the card (``check(enc, files, launches)`` adds the case's own
+    checks).  Then the peak device memory of that first batch, warm MP/s
+    of the batch beside a loop of per-image encodes, and the device's
+    busy share and copies over one batch (``torch.profiler``).
+    Returns the encoder and the launches."""
+    from tpuenc_torch import ColorType
+    from tpuenc_torch.entropy import device_encode as de
+
+    de._budget_memo.clear()
+    enc = make(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, launches = counted(
+        lambda: enc.encode_batch(imgs, w, h, ColorType.RGB))
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"  ({title}) {len(imgs)} x {w}x{h}: path {enc.last_encode_path}, "
+          f"budget rung {enc.last_budget}, {sum(map(len, out))} bytes, peak "
+          f"device memory {peak / 2**20:.1f} MiB, launches per batch "
+          f"{launches}")
+    if enc.last_encode_path != path:
+        raise AssertionError(f"({title}) batch ran on {enc.last_encode_path}, "
+                             f"want {path}")
+    check_launches(launches, required, absent)
+    for f in out:
+        check_jpeg(f)
+    loop_enc = make(dev)
+    if out != [loop_enc.encode(im, w, h, ColorType.RGB) for im in imgs]:
+        raise AssertionError(f"({title}) batch differs from per-image encodes")
+    print("  every file == its own encode on the card")
+    if check is not None:
+        check(enc, out, launches)
+    batch_vs_loop(enc, loop_enc, imgs, w, h)
+    tl = device_timeline(lambda: enc.encode_batch(imgs, w, h, ColorType.RGB))
+    if tl is None:
+        print("    device timeline: not measured (the profiler saw no "
+              "device activity)")
+    else:
+        print(f"    device timeline of one batch ({tl['span_ms']:.3f} ms "
+              f"host span, {tl['kernels']} kernels): busy {tl['busy']:.1%}; "
+              + "; ".join(f"{k} {tl[k][0]} copies {tl[k][1]:.3f} ms"
+                          for k in ("HtoD", "DtoH")))
+    return enc, launches
+
+
+def check_single_program(n_blocks):
+    """The single program's launches: K1 once per component for the whole
+    batch, K2, K3 and K5 once per rung tried, K4 once per rung whose
+    merge plan folds."""
+    from tpuenc_torch.entropy import device_encode as de
+    from tpuenc_torch.entropy import pallas_pack as pk
+
+    def check(enc, out, launches):
+        # A batch climbs from a cleared memo: every rung up to its own.
+        rungs = [b for b in de.BUDGET_LADDER if b <= enc.last_budget]
+        Bp = -(-n_blocks // 512) * 512
+        folds = sum(pk.merge_plan(Bp, pk.final_block_cap(max(b, 16)),
+                                  b)[3] is not None for b in rungs)
+        want = {"fdct_quantize": 3, "pack_blocks": len(rungs),
+                "merge_chunks": len(rungs), "fold_rows": folds,
+                "concat_rows": len(rungs)}
+        got = {k: launches[k] for k in want}
+        if got != want:
+            raise AssertionError(f"single program launches {got}, want {want}")
+        print(f"  {n_blocks} blocks in one P1; launches as the route's: "
+              f"{want} (rungs tried {rungs})")
+    return check
+
+
+def phase_batch(dev, flagship_bytes):
+    """``encode_batch`` on the card, on each of its two routes, and the
+    kernels at the batches' shapes against their plain versions.  Returns
+    ``(launches by path, kernel results)``."""
+    from tpuenc_torch import ColorType, Encoder
+    from tpuenc_torch.entropy import pallas_hist as ph
+    from tpuenc_torch.kernels import pipeline
+
+    paths = {}
+    results = {}
+    absent_single = ["pack_acbands", "hist_count", "fused_sample_pack",
+                     "hist_sym"]
+    merge = ["merge_chunks", "concat_rows"]
+
+    # (a) 8 flagship images on the single program.
+    flag = [make_rgb(FLAGSHIP_W, FLAGSHIP_H, seed=42 + i) for i in range(8)]
+    single = check_single_program(8 * 3 * -(-FLAGSHIP_W // 8)
+                                  * -(-FLAGSHIP_H // 8))
+
+    def check_a(enc, out, launches):
+        if out[0] != flagship_bytes:
+            raise AssertionError("(a) image 0 differs from phase 5's bytes")
+        print("  image 0 == phase 5's bytes (== the CPU path's)")
+        single(enc, out, launches)
+
+    enc, paths["batch_single_flagship_x8"] = batch_case(
+        dev, "a", lambda d: Encoder(90, device=d), flag, FLAGSHIP_W,
+        FLAGSHIP_H, "device-batch", ["fdct_quantize", "pack_blocks", *merge],
+        absent_single, check_a)
+    batch_stage_times(dev, enc, flag, FLAGSHIP_W, FLAGSHIP_H)
+    batch_kernel_checks(dev, enc, flag, FLAGSHIP_W, FLAGSHIP_H, results,
+                        "batch (a)")
+
+    # (b) BASELINE config 1 on the single program.
+    n, w, h = BASELINE1
+    imgs = [make_rgb(w, h, seed=i) for i in range(n)]
+    enc, paths["batch_single_baseline1_x16"] = batch_case(
+        dev, "b", lambda d: Encoder(90, device=d), imgs, w, h, "device-batch",
+        ["fdct_quantize", "pack_blocks", *merge], absent_single,
+        check_single_program(n * (w // 8) * (h // 8) * 3))
+    batch_kernel_checks(dev, enc, imgs, w, h, results, "batch (b)")
+
+    # (c) progressive, default tables: image by image, K6 per image.
+    def progressive(d):
+        e = Encoder(90, device=d)
+        e.set_progressive(True)
+        return e
+
+    _, paths["batch_per_image_progressive_x4"] = batch_case(
+        dev, "c", progressive, flag[:4], FLAGSHIP_W, FLAGSHIP_H,
+        "device-batch-per-image", ["fdct_quantize", "pack_acbands", *merge],
+        ["pack_blocks", "hist_count", "fused_sample_pack", "hist_sym"])
+
+    # (d) fused_p1 with restart interval 64, which does not divide the
+    # flagship's 56,250 MCUs: image by image through K8.
+    def fused(d, fused_p1=True):
+        e = Encoder(90, device=d, fused_p1=fused_p1)
+        e.set_restart_interval(64)
+        return e
+
+    def check_d(enc, out, launches):
+        split = fused(dev, fused_p1=False)
+        if out != [split.encode(im, FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB)
+                   for im in flag[:4]]:
+            raise AssertionError("(d) K8 batch differs from the split encoder")
+        print("  every file == the split encoder's")
+
+    _, paths["batch_per_image_fused_x4"] = batch_case(
+        dev, "d", fused, flag[:4], FLAGSHIP_W, FLAGSHIP_H,
+        "device-batch-per-image", ["fused_sample_pack", *merge],
+        ["fdct_quantize", "pack_blocks", "pack_acbands", "hist_count",
+         "hist_sym"], check_d)
+
+    # (e) BASELINE config 3: optimized tables, image by image.
+    def optimized(d):
+        e = Encoder(90, device=d)
+        e.set_optimized_huffman_tables(True)
+        return e
+
+    n, w, h = BASELINE3
+    imgs = [make_rgb(w, h, seed=i) for i in range(n)]
+    enc, paths["batch_per_image_baseline3_x2"] = batch_case(
+        dev, "e", optimized, imgs, w, h, "device-batch-per-image",
+        ["fdct_quantize", "pack_blocks", "hist_count", *merge],
+        ["pack_acbands", "fused_sample_pack", "hist_sym"])
+    # K7 at (e)'s shape: one 4K image's luma stream, sequential band.
+    config = enc._config()
+    params = enc._default_tables(config)[2]
+    luma = pipeline.fn_cm(torch.from_numpy(imgs[0]).to(dev), w, h,
+                          ColorType.RGB, config, params.reciprocals,
+                          params.corrections)[0].contiguous()
+    print(f"  kernels at (e)'s shape: luma {luma.shape[1]} blocks, band (1, 64)")
+    check_kernel(results, "K7 hist_count batch (e)",
+                 lambda: ph.hist_count(luma, [(1, 64)]),
+                 lambda: ph.hist_count_ref(luma, [(1, 64)]), nbytes(luma))
+    return paths, results
+
+
 KERNELS = [
     # (name, counter key, results key, source, replaces)
     ("K1 fdct_quantize", "fdct_quantize", "K1 fdct_quantize",
@@ -915,7 +1366,9 @@ def main():
               ("6. flagship, progressive with optimized tables",
                lambda: phase_progressive(dev)),
               ("7. flagship, interleaved, fused P1 (K8)",
-               lambda: phase_fused(dev, flagship["bytes"], flagship["rung"]))]
+               lambda: phase_fused(dev, flagship["bytes"], flagship["rung"])),
+              ("8. batch (encode_batch: single program, per image)",
+               lambda: phase_batch(dev, flagship["bytes"]))]
     out = {}
     for title, fn in phases:
         print(f"== {title}")
@@ -924,15 +1377,17 @@ def main():
         if title.startswith("3."):
             tests_only = {k.__name__: k.launches for k in counted_kernels()}
         print(f"   ({time.perf_counter() - t0:.2f} s)")
-    results = out[phases[2][0]]
+    batch_paths, batch_results = out[phases[7][0]]
+    results = {**out[phases[2][0]], **batch_results}
     paths = {"interleaved": out[phases[4][0]],
              "progressive_optimized": out[phases[5][0]],
-             "interleaved_fused": out[phases[6][0]]}
+             "interleaved_fused": out[phases[6][0]],
+             **batch_paths}
 
     kernels = []
     for name, counter, key, source, replaces in KERNELS:
         r = results[key]
-        errs = [v["err"] for k, v in results.items() if k.startswith(name)]
+        cases = {k: v for k, v in results.items() if k.startswith(name)}
         by_path = {p: n[counter] for p, n in paths.items() if n[counter]}
         entry = {
             "name": name, "route": "cuda", "source": source,
@@ -940,13 +1395,19 @@ def main():
             # ms and plain_ms: the call with the card idle, the wrapper's
             # host time in it, as the caller sees it; device_ms: the kernel
             # and its wrapper's small fills alone (cuda_ms queued).
-            "max_abs_err": max(errs), "ms": r["ms"],
+            "max_abs_err": max(v["err"] for v in cases.values()),
+            "ms": r["ms"],
             "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             # Integer work, no matrix product: the bytes bound it.
             "bound_ms": r["bound"], "bound_by": "bytes",
             # No single PyTorch call computes any of these functions.
             "library_ms": None,
             "path": "+".join(by_path), "launches_by_path": by_path,
+            # Every shape the kernel was held against its plain version
+            # at (phase 3's and the batches' of phase 8).
+            "checks": [{"case": k, "max_abs_err": v["err"], "ms": v["ms"],
+                        "device_ms": v["device_ms"], "plain_ms": v["plain_ms"],
+                        "bound_ms": v["bound"]} for k, v in cases.items()],
         }
         if not by_path:  # K9: no encode path runs it (tpuenc's tests only)
             entry.update(launches=tests_only[counter], path="tests only")

@@ -165,8 +165,9 @@ def test_unsupported_modes_raise(setup, match):
 def test_unsupported_entry_points_raise():
     enc = tt.Encoder(90, device="cpu")
     px = np.zeros((16, 16, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="M8"):
-        enc.encode_batch([px], 16, 16, tt.ColorType.RGB)
+    # encode_batch (ROADMAP M8) is ported: it returns what encode returns.
+    assert enc.encode_batch([px], 16, 16, tt.ColorType.RGB) == [
+        enc.encode(px, 16, 16, tt.ColorType.RGB)]
     with pytest.raises(NotImplementedError, match="M9"):
         enc.encode_stream(px, 16, 16, tt.ColorType.RGB)
     with pytest.raises(NotImplementedError, match="M9"):  # > 3M blocks

@@ -1,0 +1,292 @@
+"""tpuenc_torch's ``encode_batch`` against tpuenc's and against per-image
+``encode``, on the CPU (the kernels' plain versions), byte for byte
+(integer arithmetic throughout: tolerance 0)."""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import pytest
+import torch
+from hypothesis import HealthCheck, given, settings
+from hypothesis import strategies as st
+
+jax = pytest.importorskip("jax")
+
+import tpuenc  # noqa: E402
+import tpuenc_torch as tt  # noqa: E402
+from tpuenc_torch.core.types import EncoderConfig, SamplingFactor  # noqa: E402
+from tpuenc_torch.entropy import device_encode as de  # noqa: E402
+from tpuenc_torch.kernels import pipeline as tpipe  # noqa: E402
+from tpuenc_torch.kernels.color_convert import to_planes  # noqa: E402
+
+
+def _setup(enc, restart=0, scans=None, opt=False):
+    if restart:
+        enc.set_restart_interval(restart)
+    if scans:
+        enc.set_progressive_scans(scans)
+    if opt:
+        enc.set_optimized_huffman_tables(True)
+    return enc
+
+
+def _images(n, w, h, ch, seed):
+    rng = np.random.default_rng(seed)
+    shape = (h, w) if ch == 1 else (h, w, ch)
+    return [rng.integers(0, 256, shape, np.uint8) for _ in range(n)]
+
+
+# (n, w, h, color type, channels, quality, settings, route)
+CASES = {
+    # Twin of tests/test_device_entropy.py::test_fused_batch_matches_singles:
+    # 4:2:0 at q85 has 15 MCUs, which restart interval 4 does not divide.
+    "rgb66x34_restart0": (3, 66, 34, "RGB", 3, 85, {}, "device-batch"),
+    "rgb66x34_restart4": (3, 66, 34, "RGB", 3, 85, {"restart": 4},
+                          "device-batch-per-image"),
+    # Twin of tests/test_api.py::test_encode_batch_luma_matches_singles:
+    # batched LUMA is (N, H, W), no channel axis.
+    "luma1x1_n2": (2, 1, 1, "LUMA", 1, 80, {}, "device-batch"),
+    "luma16x16_n3": (3, 16, 16, "LUMA", 1, 80, {}, "device-batch"),
+    # One image: with its W taken for channels the shapes still fit, and
+    # the file came out wrong from byte 397 on.
+    "luma16x16_n1": (1, 16, 16, "LUMA", 1, 80, {}, "device-batch"),
+    "ycck": (3, 30, 20, "YCCK", 4, 90, {}, "device-batch"),
+    "rgb420_q80_restart5": (3, 66, 34, "RGB", 3, 80, {"restart": 5},
+                            "device-batch"),
+    # 4:4:4 66x34 has 45 MCUs: interval 7 leaves a ragged last segment.
+    "ragged_restart7": (3, 66, 34, "RGB", 3, 90, {"restart": 7},
+                        "device-batch-per-image"),
+    "progressive4_restart2": (3, 40, 24, "RGB", 3, 90,
+                              {"scans": 4, "restart": 2},
+                              "device-batch-per-image"),
+    "optimized": (3, 40, 24, "RGB", 3, 90, {"opt": True},
+                  "device-batch-per-image"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_batch_matches_tpuenc_and_singles(name):
+    """Each route's files equal tpuenc's encode_batch and the port's own
+    per-image encode, byte for byte, and the route is the expected one."""
+    n, w, h, ct, ch, q, kw, route = CASES[name]
+    imgs = _images(n, w, h, ch, seed=len(name))
+    enc = _setup(tt.Encoder(q, device="cpu"), **kw)
+    got = enc.encode_batch(imgs, w, h, tt.ColorType[ct])
+    assert enc.last_encode_path == route
+    assert enc.last_budget in de.BUDGET_LADDER
+    want = _setup(tpuenc.Encoder(q), **kw).encode_batch(
+        imgs, w, h, tpuenc.ColorType[ct])
+    singles = [_setup(tt.Encoder(q, device="cpu"), **kw).encode(
+        im, w, h, tt.ColorType[ct]) for im in imgs]
+    assert got == want
+    assert got == singles
+
+
+@pytest.mark.parametrize("restart,route", [
+    (0, "device-batch"),                           # one program, K1 + K2
+    (7, "device-batch-per-image"),                 # per image through K8
+])
+def test_fused_p1_routes(restart, route):
+    """With fused_p1 the per-image route packs each interleaved image with
+    K8 and the single program keeps K1 + K2, as in tpuenc; the files are
+    the split encoder's either way."""
+    imgs = _images(3, 66, 34, 3, seed=restart)
+    enc = _setup(tt.Encoder(90, device="cpu", fused_p1=True), restart=restart)
+    got = enc.encode_batch(imgs, 66, 34, tt.ColorType.RGB)
+    assert enc.last_encode_path == route
+    split = [_setup(tt.Encoder(90, device="cpu"), restart=restart).encode(
+        im, 66, 34, tt.ColorType.RGB) for im in imgs]
+    assert got == split
+
+
+@pytest.mark.parametrize("kw", [{}, {"restart": 7}, {"scans": 2}],
+                         ids=["single", "per_image", "per_image_progressive"])
+def test_overflow_climbs_without_changing_bytes(kw):
+    """A q100 batch whose noisy images overflow the ladder's first rung
+    between flat ones that do not: the single program climbs its own
+    ladder, the per-image route each image's; the files are the per-image
+    encodes', and the memo keys are the batch's (with its size) and
+    encode()'s."""
+    rng = np.random.default_rng(5)
+    flat = np.full((34, 66, 3), 128, np.uint8)
+    imgs = [flat, rng.integers(0, 256, (34, 66, 3), np.uint8), flat]
+    de._budget_memo.clear()
+    enc = _setup(tt.Encoder(100, device="cpu"), **kw)
+    got = enc.encode_batch(imgs, 66, 34, tt.ColorType.RGB)
+    assert enc.last_budget > de.BUDGET_LADDER[0]
+    singles = [_setup(tt.Encoder(100, device="cpu"), **kw).encode(
+        im, 66, 34, tt.ColorType.RGB) for im in imgs]
+    assert got == singles
+    single = enc.last_encode_path == "device-batch"
+    assert [len(k) for k in de._budget_memo] == ([7, 5] if single else [5])
+    # A second batch starts at the learned rung: same bytes again.
+    assert enc.encode_batch(imgs, 66, 34, tt.ColorType.RGB) == singles
+
+
+def test_writer_sink_fed_once_per_image():
+    """Twin of tests/test_api.py::test_encode_batch_honors_writer_sink."""
+    imgs = _images(3, 16, 24, 3, seed=7)
+
+    class Sink:
+        def __init__(self):
+            self.chunks = []
+
+        def write(self, b):
+            self.chunks.append(bytes(b))
+
+    sink = Sink()
+    enc = tt.Encoder.new_writer(sink, 90, device="cpu")
+    outs = enc.encode_batch([i.tobytes() for i in imgs], 16, 24,
+                            tt.ColorType.RGB)
+    assert sink.chunks == outs
+    assert outs == tpuenc.Encoder(90).encode_batch(
+        [i.tobytes() for i in imgs], 16, 24, tpuenc.ColorType.RGB)
+
+
+def test_bad_input_raises():
+    enc = tt.Encoder(90, device="cpu")
+    good = bytes(16 * 16 * 3)
+    with pytest.raises(tt.BadImageData):
+        enc.encode_batch([good, good[:-1]], 16, 16, tt.ColorType.RGB)
+    with pytest.raises(tt.ZeroImageDimensions):
+        enc.encode_batch([good], 0, 16, tt.ColorType.RGB)
+    assert enc.encode_batch([], 16, 16, tt.ColorType.RGB) == []
+    assert tpuenc.Encoder(90).encode_batch([], 16, 16,
+                                           tpuenc.ColorType.RGB) == []
+
+
+def test_over_limit_batch_raises_naming_m9():
+    """A batch of images past the whole-image limits raises as encode does
+    (12.6M pack rows for 2048x2048 RGB in 64 scans)."""
+    enc = tt.Encoder(90, device="cpu")
+    enc.set_progressive_scans(64)
+    px = np.zeros((2048, 2048, 3), np.uint8)
+    with pytest.raises(NotImplementedError, match="M9"):
+        enc.encode_batch([px, px], 2048, 2048, tt.ColorType.RGB)
+
+
+def _config(sf="F_1_1", restart=None, progressive=None, opt=False):
+    return EncoderConfig(quality=90, sampling_factor=SamplingFactor[sf],
+                         restart_interval=restart,
+                         progressive_scans=progressive,
+                         optimize_huffman_table=opt)
+
+
+@pytest.mark.parametrize("n,w,h,config,route", [
+    # The block limit, n * (w//8 + 1) * (h//8 + 1) <= 3,000,000.
+    (8, 2000, 1800, _config(), de.SINGLE_PROGRAM),            # 453,808
+    (52, 2000, 1800, _config(), de.SINGLE_PROGRAM),           # 2,949,752
+    (53, 2000, 1800, _config(), de.PER_IMAGE),                # 3,006,478
+    (1000, 799, 239, _config(), de.SINGLE_PROGRAM),           # 3,000,000
+    (1001, 799, 239, _config(), de.PER_IMAGE),                # 3,003,000
+    # The restart interval must divide each image's MCUs (56,250 here).
+    (4, 2000, 1800, _config(restart=50), de.SINGLE_PROGRAM),
+    (4, 2000, 1800, _config(restart=64), de.PER_IMAGE),
+    # 4:2:0: 125 x 113 = 14,125 MCUs.
+    (4, 2000, 1800, _config(sf="F_2_2", restart=25), de.SINGLE_PROGRAM),
+    (4, 2000, 1800, _config(sf="F_2_2", restart=30), de.PER_IMAGE),
+    # The mode and the tables.
+    (4, 64, 64, _config(progressive=4), de.PER_IMAGE),
+    (4, 64, 64, _config(opt=True), de.PER_IMAGE),
+    (4, 64, 64, _config(progressive=4, opt=True), de.PER_IMAGE),
+])
+def test_batch_route(n, w, h, config, route):
+    """The route function at its boundaries, computed without encoding."""
+    assert de.batch_route(n, w, h, tt.ColorType.RGB, config) == route
+
+
+@pytest.mark.parametrize("config", [_config(restart=7), _config(progressive=2),
+                                    _config(opt=True)],
+                         ids=["ragged_restart", "progressive", "optimized"])
+def test_route_functions_refuse_other_batches(config):
+    """The single program raises for a batch it does not serve."""
+    imgs = _images(2, 66, 34, 3, seed=0)
+    params = tt.Encoder(90, device="cpu")._default_tables(config)[2]
+    with pytest.raises(ValueError, match="single program"):
+        de.device_encode_batch_single(imgs, 66, 34, tt.ColorType.RGB, config,
+                                      params)
+
+
+def test_batched_luma_keeps_its_width():
+    """to_planes takes the batch axis from its caller: an (N, H, W) LUMA
+    batch keeps W (it was stripped as a channel axis), and a tensor
+    whose axes do not match the caller's statement raises."""
+    px = torch.arange(2 * 3 * 5, dtype=torch.uint8).view(2, 3, 5)
+    (plane,) = to_planes(px, tt.ColorType.LUMA, batched=True)
+    assert torch.equal(plane, px.to(torch.int32))
+    (plane,) = to_planes(px[0], tt.ColorType.LUMA)
+    assert plane.shape == (3, 5)
+    with pytest.raises(ValueError):
+        to_planes(px, tt.ColorType.LUMA)
+    with pytest.raises(ValueError):
+        to_planes(px, tt.ColorType.RGB, batched=True)
+
+
+@pytest.mark.parametrize("ct,ch,sf,scans", [
+    ("RGB", 3, "F_1_1", None), ("RGB", 3, "F_2_2", None),
+    ("YCCK", 4, "F_2_1", None), ("LUMA", 1, "F_1_1", None),
+    ("RGB", 3, "F_4_1", 2), ("LUMA", 1, "F_2_2", 3),
+])
+def test_batched_streams_are_the_images_streams_in_turn(ct, ch, sf, scans):
+    """fn_cm and fn_cm_samples over (N, H, W[, C]): the N images' streams
+    one after another, in (image, MCU, block) column order for an
+    interleaved scan, from one K1 per component."""
+    w, h, n = 37, 21, 3
+    config = EncoderConfig(quality=80, sampling_factor=SamplingFactor[sf],
+                           progressive_scans=scans)
+    params = tt.Encoder(80, device="cpu")._default_tables(config)[2]
+    px = torch.from_numpy(np.stack(_images(n, w, h, ch, seed=ch)))
+    args = (w, h, tt.ColorType[ct], config)
+    q = (params.reciprocals, params.corrections)
+    got = tpipe.fn_cm(px, *args, *q, batched=True)
+    each = [tpipe.fn_cm(px[i], *args, *q) for i in range(n)]
+    assert len(got) == len(each[0])
+    for k, stream in enumerate(got):
+        assert torch.equal(stream, torch.cat([e[k] for e in each], dim=1))
+    if config.mode() == "interleaved":
+        assert torch.equal(
+            tpipe.fn_cm_samples(px, *args, batched=True),
+            torch.cat([tpipe.fn_cm_samples(px[i], *args) for i in range(n)],
+                      dim=1))
+
+
+@settings(
+    max_examples=int(os.environ.get("TPUENC_FUZZ_EXAMPLES", "6")),
+    deadline=None,
+    suppress_health_check=[HealthCheck.too_slow],
+)
+@given(
+    w=st.integers(1, 24),
+    h=st.integers(1, 24),
+    n=st.integers(1, 4),
+    quality=st.integers(1, 100),
+    ct=st.sampled_from(["LUMA", "RGB", "YCCK"]),
+    optimized=st.booleans(),
+    restart=st.sampled_from([0, 5]),
+    seed=st.integers(0, 2**31),
+)
+def test_fuzz_encode_batch(w, h, n, quality, ct, optimized, restart, seed):
+    """Twin of tests/test_fuzz.py::test_fuzz_encode_batch: encode_batch
+    byte-identical to per-image encode and to tpuenc's encode_batch."""
+    bpp = tt.ColorType[ct].bytes_per_pixel
+    rng = np.random.default_rng(seed)
+    imgs = [rng.integers(0, 256, size=w * h * bpp, dtype=np.uint8).tobytes()
+            for _ in range(n)]
+
+    def make(cls, **kw):
+        enc = cls(quality, **kw)
+        if optimized:
+            enc.set_optimized_huffman_tables(True)
+        if restart:
+            enc.set_restart_interval(restart)
+        return enc
+
+    batch = make(tt.Encoder, device="cpu").encode_batch(
+        imgs, w, h, tt.ColorType[ct])
+    singles = [make(tt.Encoder, device="cpu").encode(im, w, h, tt.ColorType[ct])
+               for im in imgs]
+    assert batch == singles
+    assert batch == make(tpuenc.Encoder).encode_batch(
+        imgs, w, h, tpuenc.ColorType[ct])

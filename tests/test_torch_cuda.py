@@ -662,3 +662,99 @@ def test_cuda_matches_cpu(dev, w, h, ct, ch, quality, sf, restart, scans, opt):
         e.set_optimized_huffman_tables(opt)
         out[str(d)] = e.encode(px, w, h, ColorType(ct))
     assert out[str(dev)] == out["cpu"]
+
+
+def _batch_encoder(device, quality, kw):
+    from tpuenc_torch import Encoder
+
+    e = Encoder(quality, device=device, fused_p1=kw.get("fused", False))
+    e.set_restart_interval(kw.get("restart", 0))
+    if kw.get("scans"):
+        e.set_progressive_scans(kw["scans"])
+    e.set_optimized_huffman_tables(kw.get("opt", False))
+    return e
+
+
+def _batch_images(n, w, h, seed):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = ((xx * 5 + yy * 3) % 256)[..., None]
+    return [np.clip(base + rng.integers(-40, 40, (h, w, 3)), 0, 255)
+            .astype(np.uint8) for _ in range(n)]
+
+
+BATCHES = {
+    # name: (n, w, h, quality, settings, route)
+    "single": (4, 640, 480, 90, {}, "device-batch"),
+    "single_420_restart4": (3, 500, 300, 80, {"restart": 4}, "device-batch"),
+    "single_fused_p1": (3, 320, 200, 90, {"fused": True}, "device-batch"),
+    "per_image_ragged_restart": (3, 500, 300, 90, {"restart": 11},
+                                 "device-batch-per-image"),
+    "per_image_progressive": (4, 640, 480, 90, {"scans": 4},
+                              "device-batch-per-image"),
+    "per_image_fused": (4, 640, 480, 90, {"fused": True, "restart": 7},
+                        "device-batch-per-image"),
+    "per_image_optimized": (2, 640, 480, 90, {"opt": True},
+                            "device-batch-per-image"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BATCHES))
+def test_batch_matches_loop_on_cuda(dev, name):
+    """Each batch route on the card: every file equals its own encode on
+    the card, and the batch equals the CPU path's batch."""
+    from tpuenc_torch import ColorType
+
+    n, w, h, q, kw, route = BATCHES[name]
+    imgs = _batch_images(n, w, h, seed=len(name))
+    enc = _batch_encoder(dev, q, kw)
+    got = enc.encode_batch(imgs, w, h, ColorType.RGB)
+    assert enc.last_encode_path == route
+    loop = _batch_encoder(dev, q, kw)
+    assert got == [loop.encode(im, w, h, ColorType.RGB) for im in imgs]
+    assert got == _batch_encoder("cpu", q, kw).encode_batch(imgs, w, h,
+                                                             ColorType.RGB)
+
+
+@pytest.mark.parametrize("kw", [{}, {"restart": 11}, {"fused": True,
+                                                      "restart": 11}],
+                         ids=["single", "per_image", "per_image_fused"])
+def test_batch_on_a_side_stream(dev, kw):
+    """A batch encoded under another current stream runs its kernels and
+    copies on that stream and gives the same files as on the default
+    stream."""
+    from tpuenc_torch import ColorType
+
+    imgs = _batch_images(3, 500, 300, seed=3)
+    want = _batch_encoder(dev, 90, kw).encode_batch(imgs, 500, 300,
+                                                     ColorType.RGB)
+    side = torch.cuda.Stream(dev)
+    enc = _batch_encoder(dev, 90, kw)
+    with torch.cuda.stream(side):
+        got = enc.encode_batch(imgs, 500, 300, ColorType.RGB)
+        assert torch.cuda.current_stream(dev) == side
+    assert got == want
+
+
+def test_pinned_staging_reused_across_batches(dev):
+    """The single program's page-locked buffer for its stream is allocated
+    once and reused: the same images again, or a smaller batch of them,
+    allocate nothing; a larger batch grows it; the files stay per-image
+    encode()'s throughout."""
+    from tpuenc_torch import ColorType
+
+    enc = _batch_encoder(dev, 90, {})
+    imgs = _batch_images(4, 500, 300, seed=4)
+    first = enc.encode_batch(imgs, 500, 300, ColorType.RGB)
+    assert enc.last_encode_path == "device-batch"
+    pinned = enc._pinned
+    buf = pinned._buf
+    assert buf.is_pinned()
+    assert enc.encode_batch(imgs, 500, 300, ColorType.RGB) == first
+    assert enc.encode_batch(imgs[:2], 500, 300, ColorType.RGB) == first[:2]
+    assert enc.encode_batch(imgs[1:], 500, 300, ColorType.RGB) == first[1:]
+    assert pinned._buf.data_ptr() == buf.data_ptr()
+    big = imgs * 4
+    assert enc.encode_batch(big, 500, 300, ColorType.RGB) == first * 4
+    assert pinned._buf.numel() > buf.numel()
+    assert enc._pinned is pinned

@@ -3,7 +3,7 @@
 A second package beside ``tpuenc`` (the JAX reference, byte for byte):
 the same ``Encoder`` API on an explicit PyTorch device, for interleaved,
 sequential and progressive scans with default or two-pass optimized
-Huffman tables.  On a CUDA device the coefficient stage (fDCT + zigzag +
+Huffman tables, one image at a time or a batch (``encode_batch``).  On a CUDA device the coefficient stage (fDCT + zigzag +
 quantize, K1), the two-pass symbol counts (K7) and the entropy packer
 (P1-P4: K2, K6, K3-K5) run as hand-written CUDA kernels (``csrc/``, built
 with nvcc at first use), and ``Encoder(..., fused_p1=True)`` runs K8 in

@@ -11,9 +11,10 @@ versions.  Either way the bytes are the same.
 It encodes every mode of the whole-image path: interleaved, sequential
 and progressive (2-64 scans), with default or two-pass optimized Huffman
 tables, every color type and sampling factor, restart intervals and
-metadata.  ``encode_batch`` and ``encode_stream``, and images past the
-whole-image limits, raise ``NotImplementedError`` naming their ROADMAP
-item.
+metadata; ``encode_batch`` encodes batches of same-shape images on one of
+two routes, each file byte for byte what ``encode`` gives.
+``encode_stream``, and images past the whole-image limits, raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -158,9 +159,14 @@ class Encoder:
         # quality), and the default Huffman tables' tensors.
         self._quant: dict = {}
         self._default_huffman = None
-        # Which path produced the last encode() output ("device-v2", the
-        # counterpart of tpuenc's v2 device packer, or "device-v2-fused"
-        # with K8), and the budget rung (words per block) its packer used.
+        # encode_batch's page-locked buffer for the single program's
+        # stream on a CUDA device, made at its first batch
+        # (entropy.device_encode.PinnedBuffer).
+        self._pinned = None
+        # Which path produced the last output: encode()'s "device-v2" (the
+        # counterpart of tpuenc's v2 device packer) or "device-v2-fused"
+        # (with K8), or encode_batch's route; and the budget rung (words
+        # per block) its packer used.
         self.last_encode_path: Optional[str] = None
         self.last_budget: Optional[int] = None
 
@@ -324,8 +330,76 @@ class Encoder:
             "ROADMAP M9"
         )
 
-    def encode_batch(self, *args, **kwargs):
-        raise NotImplementedError("encode_batch is not ported yet: ROADMAP M8")
+    def encode_batch(
+        self,
+        images,
+        width: int,
+        height: int,
+        color_type: ColorType,
+    ) -> List[bytes]:
+        """Encode a batch of same-shape images, each byte for byte what
+        :meth:`encode` gives it: ``tpuenc``'s serving path
+        (tpuenc/api.py:533-629).
+
+        ``images``: an iterable of pixel buffers (bytes or arrays), each
+        laid out as for :meth:`encode` and checked as it is.  The route
+        is chosen up front from the batch's size, shape and settings
+        (``entropy.device_encode.batch_route``) and named in
+        ``last_encode_path``:
+
+        * ``"device-batch"``: interleaved, default tables, at most 3M
+          blocks, a restart interval (if any) that divides each image's
+          MCUs: ONE program over the whole batch.  It packs with K1 and
+          K2 even when ``fused_p1`` is set, as in ``tpuenc``, where the
+          fused kernel reaches only the per-image program.
+        * ``"device-batch-per-image"``: any other batch (another mode,
+          optimized tables, a larger batch, a restart interval that does
+          not divide the MCUs), each image as :meth:`encode` runs it,
+          through K8 where ``fused_p1`` reaches it there.
+
+        A failure inside a route raises; no route gives way to another.
+        ``last_budget`` is the single program's rung, or the highest rung
+        any image used.  Each file goes to the encoder's sink
+        (``new_file`` / ``new_writer``) as :meth:`encode` sends it.
+        """
+        color_type = ColorType(color_type)
+        pixel_arrays = [_validate_pixels(data, width, height, color_type)
+                        for data in images]
+        if not pixel_arrays:
+            _check_dims(width, height)
+            return []
+        config = self._config()
+        self._check_supported(config, width, height, color_type)
+        route = de.batch_route(len(pixel_arrays), width, height, color_type,
+                               config)
+        if route == de.PER_IMAGE:
+            results, rungs = [], []
+            for px in pixel_arrays:
+                results.append(self._finish(
+                    self._encode_pixels(px, width, height, color_type)))
+                rungs.append(self.last_budget)
+            self.last_encode_path, self.last_budget = route, max(rungs)
+            return results
+
+        q_tables, huffman, params = self._default_tables(config)
+        if self.device.type == "cuda" and self._pinned is None:
+            self._pinned = de.PinnedBuffer()
+        batch_scans, budget = de.device_encode_batch_single(
+            pixel_arrays, width, height, color_type, config, params,
+            self._pinned)
+        self.last_encode_path, self.last_budget = route, budget
+
+        jct = color_type.jpeg_color_type
+        components = init_components(jct, config.sampling_factor)
+        prefix = bytes(self._leading_segments(config, jct))
+        return [
+            self._finish(
+                prefix
+                + self._assemble_scans(scans, width, height, color_type,
+                                       config, components, q_tables, huffman)
+                + segments.marker(markers.EOI))
+            for scans in batch_scans
+        ]
 
     def _finish(self, payload: bytes) -> bytes:
         try:
@@ -363,11 +437,22 @@ class Encoder:
                 "paths, not ported yet: ROADMAP M9"
             )
 
-    def _quant_params(self, config, q_tables):
+    def _default_tables(self, config):
+        """The (luma, chroma) quantization tables, the default Huffman
+        tables and the encode parameters with both on ``self.device``
+        (the quantizers cached by (quantization, quality))."""
+        q_tables = [
+            quantization_table(config.quantization[0], config.quality, luma=True),
+            quantization_table(config.quantization[1], config.quality, luma=False),
+        ]
         key = (config.quantization, config.quality)
         if key not in self._quant:
             self._quant[key] = de.quant_params(q_tables, self.device)
-        return self._quant[key]
+        if self._default_huffman is None:
+            self._default_huffman = de.huffman_params(
+                [list(pair) for pair in default_tables()], self.device)
+        return (q_tables, [list(pair) for pair in default_tables()],
+                de.EncodeParams(*self._quant[key], *self._default_huffman))
 
     def _encode_pixels(
         self, pixels: np.ndarray, width: int, height: int, color_type: ColorType
@@ -376,12 +461,7 @@ class Encoder:
         self._check_supported(config, width, height, color_type)
         jct = color_type.jpeg_color_type
         components = init_components(jct, config.sampling_factor)
-        q_tables = [
-            quantization_table(config.quantization[0], config.quality, luma=True),
-            quantization_table(config.quantization[1], config.quality, luma=False),
-        ]
-        recip, corr = self._quant_params(config, q_tables)
-        huffman = [list(pair) for pair in default_tables()]
+        q_tables, huffman, params = self._default_tables(config)
 
         if not pixels.flags.writeable:
             pixels = pixels.copy()
@@ -395,21 +475,19 @@ class Encoder:
             # K.2 build per table on the host, and the same device streams
             # packed with the new tables, the ladder starting at the rung
             # that the exact stream size covers.
-            streams = fn_cm(px, width, height, color_type, config, recip, corr)
+            streams = fn_cm(px, width, height, color_type, config,
+                            params.reciprocals, params.corrections)
             hists = scan_histograms(streams, components,
                                     config.progressive_scans).cpu().numpy()
             hint = optimize_tables(hists, huffman, width, height, color_type,
                                    config)
             dc, ac = de.huffman_params(huffman, self.device)
-            params = de.EncodeParams(recip, corr, dc, ac)
+            params = params._replace(dc=dc, ac=ac)
             scans, budget = de.device_encode_scans(
                 px, width, height, color_type, config, params,
                 comp_streams=streams, budget_hint=hint,
             )
         else:
-            if self._default_huffman is None:
-                self._default_huffman = de.huffman_params(huffman, self.device)
-            params = de.EncodeParams(recip, corr, *self._default_huffman)
             scans, budget = de.device_encode_scans(
                 px, width, height, color_type, config, params, fused_p1=fused
             )

@@ -13,6 +13,11 @@ per-segment bits), copies the first ``total_words`` words of the stream,
 and finishes each scan's restart segments from its bit offset with the
 native realigner (byte-align, 1-pad, 0xFF-stuff, RST markers).
 
+A batch of same-shape images takes one of two routes, chosen up front
+(:func:`batch_route`): one program over every image's blocks
+(:func:`device_encode_batch_single`), or each image on its own through
+``Encoder.encode``'s path.
+
 The packer's capacities follow a words-per-block budget.  An encode starts
 at the lowest rung of :data:`BUDGET_LADDER` (or the rung learned for its
 shape and config, or the first rung that covers a content hint) and climbs
@@ -320,12 +325,14 @@ def _finish_scans_v2(buf_words, meta_np, n_scans: int,
                      seg_structure) -> List[bytes]:
     """Host finishing: copy the first ``total_words`` words of the raw
     stream (all scans' bits, concatenated in plan order) and realign /
-    pad / stuff each scan's segments from its bit offset."""
+    pad / stuff each scan's segments from its bit offset.  Each scan's
+    words are byteswapped and finished on their own, one scan at a time,
+    so that they are still in the cache when the realigner reads them
+    (a batch's single program passes its images as the scans)."""
     scan_bits = meta_np[1:1 + n_scans]
     seg_bits = meta_np[1 + n_scans:]
     total_words = (int(scan_bits.sum()) + 31) >> 5
     w = buf_words[:total_words].cpu().numpy().view(np.uint32)
-    data = w.astype(">u4").tobytes()
     scans = []
     bit_off = 0
     seg_off = 0
@@ -333,8 +340,12 @@ def _finish_scans_v2(buf_words, meta_np, n_scans: int,
         nseg = seg_structure[i]
         segs = seg_bits[seg_off:seg_off + nseg].astype(np.int64)
         seg_off += nseg
-        scans.append(native.realign_segments(data, segs, bit_offset=bit_off))
-        bit_off += int(scan_bits[i])
+        bits = int(scan_bits[i])
+        data = w[bit_off >> 5:(bit_off + bits + 31) >> 5]
+        data = data.astype(">u4").tobytes()
+        scans.append(native.realign_segments(data, segs,
+                                             bit_offset=bit_off & 31))
+        bit_off += bits
     return scans
 
 
@@ -347,6 +358,28 @@ def seg_structure(layout, scan_plan):
         counts = list(layout["comp_block_counts"])
     return [_n_segments(counts[si], spec.seg_blocks)
             for si, spec, _ in scan_plan]
+
+
+def _plan(width: int, height: int, color_type: ColorType,
+          config: EncoderConfig):
+    """The scan layout of one image, its scan plan and each scan's
+    number of restart segments."""
+    from ..kernels.pipeline import scan_layout
+
+    layout = scan_layout(width, height, color_type, config)
+    scan_plan = build_scan_plan(layout, layout["components"], config)
+    return layout, scan_plan, seg_structure(layout, scan_plan)
+
+
+def _ladder(key, budget_hint: int = 0):
+    """The rungs to try, in order: from the rung learned under ``key``,
+    else from the first that covers ``budget_hint``, else all."""
+    budgets = list(BUDGET_LADDER)
+    if key in _budget_memo:
+        return [b for b in budgets if b >= _budget_memo[key]]
+    if budget_hint > 0:
+        return [b for b in budgets if b >= budget_hint] or [budgets[-1]]
+    return budgets
 
 
 def device_encode_scans(pixels, width: int, height: int,
@@ -366,21 +399,13 @@ def device_encode_scans(pixels, width: int, height: int,
     Returns ``(scans, budget)``: the per-scan entropy byte strings
     (stuffed, RST markers in place) in plan order, and the budget rung
     that packed them."""
-    from ..kernels.pipeline import fn_cm, fn_cm_samples, scan_layout
+    from ..kernels.pipeline import fn_cm, fn_cm_samples
 
-    layout = scan_layout(width, height, color_type, config)
-    scan_plan = build_scan_plan(layout, layout["components"], config)
-    segs = seg_structure(layout, scan_plan)
+    layout, scan_plan, segs = _plan(width, height, color_type, config)
     if fused_p1 and (not layout["interleaved"] or comp_streams is not None):
         raise ValueError("fused_p1 packs one interleaved scan from its pixels")
 
     key = (width, height, color_type, config, pixels.device.type)
-    budgets = list(BUDGET_LADDER)
-    if key in _budget_memo:
-        budgets = [b for b in budgets if b >= _budget_memo[key]]
-    elif budget_hint > 0:
-        budgets = [b for b in budgets if b >= budget_hint] or [budgets[-1]]
-
     if fused_p1:
         samples = fn_cm_samples(pixels, width, height, color_type, config)
         ((_, spec, _),) = scan_plan
@@ -395,7 +420,7 @@ def device_encode_scans(pixels, width: int, height: int,
 
         def pack(budget):
             return _pack_scans_v2(comp_streams, scan_plan, params, budget)
-    for budget in budgets:
+    for budget in _ladder(key, budget_hint):
         buf, meta = pack(budget)
         meta_np = meta.cpu().numpy()
         if meta_np[0]:  # overflow: next rung
@@ -404,4 +429,118 @@ def device_encode_scans(pixels, width: int, height: int,
         return _finish_scans_v2(buf, meta_np, len(scan_plan), segs), budget
     raise RuntimeError(
         f"every budget rung overflowed ({width}x{height} {color_type})"
+    )
+
+
+# ---------------------------------------------------------------------------
+# Batches of same-shape images (tpuenc/entropy/device_encode.py:747-892).
+# ---------------------------------------------------------------------------
+
+# The single program packs at most this many blocks, counted as
+# n * (w // 8 + 1) * (h // 8 + 1) (tpuenc/entropy/device_encode.py:836).
+BATCH_BLOCK_LIMIT = 3_000_000
+
+# The routes of a batch, as ``Encoder.last_encode_path`` names them.
+SINGLE_PROGRAM = "device-batch"
+PER_IMAGE = "device-batch-per-image"
+
+
+def batch_route(n: int, width: int, height: int, color_type: ColorType,
+                config: EncoderConfig) -> str:
+    """The route of a batch of ``n`` images, chosen up front from
+    ``tpuenc``'s three conditions (``device_encode.py:775-777, 833-838``):
+    the interleaved mode with default tables and at most
+    :data:`BATCH_BLOCK_LIMIT` blocks in the batch, whose restart interval,
+    if any, divides each image's MCUs, takes :data:`SINGLE_PROGRAM`
+    (:func:`device_encode_batch_single`); any other batch takes
+    :data:`PER_IMAGE`, each image through ``Encoder.encode``'s path."""
+    from ..kernels.pipeline import scan_layout
+
+    if config.optimize_huffman_table or config.mode() != "interleaved":
+        return PER_IMAGE
+    if n * (width // 8 + 1) * (height // 8 + 1) > BATCH_BLOCK_LIMIT:
+        return PER_IMAGE
+    mcus = scan_layout(width, height, color_type, config)["mcu_count"]
+    if config.restart_interval and mcus % config.restart_interval:
+        return PER_IMAGE  # a restart segment would cross an image boundary
+    return SINGLE_PROGRAM
+
+
+class PinnedBuffer:
+    """A page-locked host buffer that the single program copies its
+    stream words into, grown to the power of two that holds the largest
+    copy asked of it and reused after that: ``cudaHostAlloc`` of tens of
+    MB costs milliseconds, and a copy into pageable memory runs several
+    times slower than one into page-locked memory."""
+
+    def __init__(self):
+        self._buf = None
+
+    def words(self, n_words: int) -> torch.Tensor:
+        """The first ``n_words`` int32 words of the buffer."""
+        nbytes = 4 * n_words
+        if self._buf is None or self._buf.numel() < nbytes:
+            size = 1 << max(0, nbytes - 1).bit_length()
+            self._buf = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+        return self._buf[:nbytes].view(torch.int32)
+
+
+def device_encode_batch_single(images, width: int, height: int,
+                               color_type: ColorType, config: EncoderConfig,
+                               params: EncodeParams, pinned=None):
+    """The single-program route: every image's scan in ONE interleaved
+    stream (``tpuenc``'s ``device_encode_batch_fused``).
+
+    ``images``: N (H, W[, C]) uint8 numpy arrays of one shape, whose batch
+    :func:`batch_route` sends to :data:`SINGLE_PROGRAM` (else
+    ``ValueError``); ``pinned``: a :class:`PinnedBuffer` for the copy of
+    the stream on a CUDA device, None on the CPU.  Each image is uploaded
+    into its slot of one (N, H, W[, C]) tensor; one coefficient pass over
+    the batch (K1 once per component), the DC differences and K2 over all
+    N x mcu_count x blocks_per_mcu blocks, with restart segments of the
+    interval or of one image, so the DC predictor resets at every image's
+    first block, and one P2-P4 merge, at each rung of the batch's own
+    ladder (memoised under the batch's size).  Then one ``meta`` read, one
+    copy of the stream, and each image's segments finished from its
+    running bit offset, so no RST marker falls between images and each
+    image's markers count from 0.  It never runs K8.  Returns
+    ``(per-image [scan bytes], budget)``."""
+    from ..kernels.pipeline import fn_cm
+
+    n = len(images)
+    if batch_route(n, width, height, color_type, config) != SINGLE_PROGRAM:
+        raise ValueError(f"a batch of {n} {width}x{height} images does not "
+                         f"take the single program")
+    layout, ((_, spec, _),), _ = _plan(width, height, color_type, config)
+    per_image = layout["mcu_count"] * len(layout["mcu_block_comps"])
+    spec = spec._replace(seg_blocks=spec.seg_blocks or per_image)
+    segs_per_image = per_image // spec.seg_blocks
+
+    px = torch.empty((n, *images[0].shape), dtype=torch.uint8,
+                     device=params.dc.device)
+    for i, image in enumerate(images):
+        px[i].copy_(torch.from_numpy(image))
+    (stream,) = fn_cm(px, width, height, color_type, config,
+                      params.reciprocals, params.corrections, batched=True)
+    key = ("batch", width, height, color_type, config, n, px.device.type)
+    for budget in _ladder(key):
+        buf, meta = _pack_scans_v2((stream,), [(0, spec, None)], params,
+                                   budget)
+        meta_np = meta.cpu().numpy()
+        if meta_np[0]:  # overflow: next rung
+            continue
+        _memo_put(key, budget)
+        if pinned is not None:
+            host = pinned.words((int(meta_np[1]) + 31) >> 5)
+            host.copy_(buf[:host.numel()])
+            buf = host
+        # Each image is a "scan" of segs_per_image segments.
+        seg_bits = meta_np[2:]
+        image_bits = seg_bits.reshape(n, segs_per_image).sum(1)
+        scans = _finish_scans_v2(
+            buf, np.concatenate([meta_np[:1], image_bits, seg_bits]), n,
+            [segs_per_image] * n)
+        return [[scan] for scan in scans], budget
+    raise RuntimeError(
+        f"every budget rung overflowed ({n} x {width}x{height} {color_type})"
     )

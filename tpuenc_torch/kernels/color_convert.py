@@ -45,9 +45,14 @@ def cmyk_to_ycck(c, m, y, k):
     return yy, cb, cr, 255 - k.to(torch.int32)
 
 
-def to_planes(pixels, color_type: ColorType) -> Tuple[torch.Tensor, ...]:
+def to_planes(pixels, color_type: ColorType, *,
+              batched: bool = False) -> Tuple[torch.Tensor, ...]:
     """Convert an interleaved (H, W, C) uint8/int image tensor into
-    per-component int32 planes in JPEG colorspace.
+    per-component int32 planes in JPEG colorspace.  A LUMA image has no
+    channel axis: (H, W).  ``batched``: the tensor has a leading image
+    axis, (N, H, W, C) or LUMA (N, H, W), and so do the planes.  The
+    caller states it; the number of axes is checked against it, never
+    read as a channel axis (``tpuenc``'s batched-LUMA fault, a7d141e).
 
     Channel mappings follow the reference's nine ``ImageBuffer`` impls
     (image_buffer.rs:100-313):
@@ -60,12 +65,14 @@ def to_planes(pixels, color_type: ColorType) -> Tuple[torch.Tensor, ...]:
       transform and inverts K (image_buffer.rs:274-285).
     * Luma/YCbCr/YCCK pass through.
     """
-    px = pixels.to(torch.int32)
     ct = ColorType(color_type)
+    ndim = 2 + int(batched) + int(ct is not ColorType.LUMA)
+    if pixels.ndim != ndim:
+        raise ValueError(f"{ct} pixels{' (batched)' if batched else ''} "
+                         f"take {ndim} axes, got shape {tuple(pixels.shape)}")
+    px = pixels.to(torch.int32)
 
     if ct is ColorType.LUMA:
-        if px.ndim == 3:
-            px = px[..., 0]
         return (px,)
 
     c0, c1, c2 = px[..., 0], px[..., 1], px[..., 2]

@@ -54,11 +54,15 @@ def _pad_edge(plane, target_h: int, target_w: int):
 
 
 def _blockify_cm(plane, v_scale: int, h_scale: int):
-    """Point-subsample, level shift and blockify one padded (H, W) plane
-    into coefficient-major (64, R*C) int32: row y*8+x holds sample (y, x)
-    of every block, columns run over blocks in raster order."""
-    h, w = plane.shape
-    R = h // (8 * v_scale)
+    """Point-subsample, level shift and blockify one padded (H, W) plane,
+    or an (N, H, W) batch of them, into coefficient-major (64, N*R*C)
+    int32: row y*8+x holds sample (y, x) of every block, columns run over
+    blocks in (image, block row, block column) order.  A batch is blocked
+    as its images stacked vertically: each padded height is a whole
+    number of block rows."""
+    w = plane.shape[-1]
+    plane = plane.reshape(-1, w)
+    R = plane.shape[0] // (8 * v_scale)
     C = w // (8 * h_scale)
     # Rows of block-row r: plane rows r*8v + y*v; cols of block-col c,
     # offset x: plane col (8c + x) * h_scale.
@@ -112,10 +116,11 @@ def scan_layout(width: int, height: int, color_type: ColorType,
 
 
 def _sample_streams(pixels, width: int, height: int, color_type: ColorType,
-                    config: EncoderConfig):
+                    config: EncoderConfig, batched: bool = False):
     """Each component's level-shifted samples, coefficient-major: the
-    components, the MCU grid (rows, cols), and one int32 (64, R*C) block
-    stream per component over its MCU-padded grid in raster order."""
+    components, the MCU grid (rows, cols) of one image, the number of
+    images, and one int32 (64, n*R*C) block stream per component over
+    its MCU-padded grid, image by image, each in raster order."""
     color_type = ColorType(color_type)
     components = init_components(color_type.jpeg_color_type,
                                  config.sampling_factor)
@@ -125,22 +130,27 @@ def _sample_streams(pixels, width: int, height: int, color_type: ColorType,
     pad_w = num_cols * 8 * max_h
     pad_h = num_rows * 8 * max_v
 
-    planes = to_planes(pixels, color_type)
+    planes = to_planes(pixels, color_type, batched=batched)
     samples = []
     for comp in components:
         plane = _pad_edge(planes[comp.id], pad_h, pad_w)
         samples.append(_blockify_cm(
             plane, max_v // comp.vertical_sampling_factor,
             max_h // comp.horizontal_sampling_factor))
-    return components, (num_rows, num_cols), samples
+    n = pixels.shape[0] if batched else 1
+    return components, (num_rows, num_cols), n, samples
 
 
-def _mcu_order(streams, components, grid):
-    """The interleaved MCU stream (64, mcu_count * blocks_per_mcu) from
-    each component's raster-ordered (64, R*C) stream: columns raster ->
-    MCU order (factor as (rows, cv, cols, ch) and swap (cv, cols)), then
-    each MCU's blocks component by component."""
+def _mcu_order(streams, components, grid, n: int = 1):
+    """The interleaved MCU stream (64, n * mcu_count * blocks_per_mcu)
+    from each component's (64, n*R*C) stream of ``n`` images: columns
+    raster -> MCU order (factor as (rows, cv, cols, ch) and swap (cv,
+    cols); the images' block rows follow one another, so a batch factors
+    as n * rows rows), then each MCU's blocks component by component.
+    The columns run in (image, MCU, block) order: the n images' MCU
+    streams one after another."""
     num_rows, num_cols = grid
+    num_rows *= n
     mcu = []
     for comp, x in zip(components, streams):
         cv = comp.vertical_sampling_factor
@@ -152,10 +162,13 @@ def _mcu_order(streams, components, grid):
 
 
 def fn_cm(pixels, width: int, height: int, color_type: ColorType,
-          config: EncoderConfig, reciprocals, corrections):
-    """The coefficient streams of one image, coefficient-major.
+          config: EncoderConfig, reciprocals, corrections, *,
+          batched: bool = False):
+    """The coefficient streams of one image, or of a batch, coefficient-major.
 
-    ``pixels``: (H, W[, C]) uint8 tensor on the encode device;
+    ``pixels``: (H, W[, C]) uint8 tensor on the encode device, or with
+    ``batched`` (N, H, W[, C]): N images of one shape (LUMA has no
+    channel axis);
     ``reciprocals``/``corrections``: int32 (2, 64) zigzag-ordered tensors
     on the same device (luma, chroma; see :func:`tpuenc_torch.params_from_numpy`).
     Interleaved modes return ``(stream,)``, the MCU stream, int16 (64,
@@ -163,39 +176,42 @@ def fn_cm(pixels, width: int, height: int, color_type: ColorType,
     one int16 (64, rows * cols) stream per component in its raster order,
     cropped to the component's own ceil(ceil(W/8)/h_scale) x
     ceil(ceil(H/8)/v_scale) grid (encoder.rs:1012-1025), which can be a
-    block narrower than the MCU-padded grid.
+    block narrower than the MCU-padded grid.  A batch gives the same
+    streams with N times the columns, the images' streams one after
+    another; K1 runs once per component for the whole batch.
     """
-    components, grid, samples = _sample_streams(pixels, width, height,
-                                                color_type, config)
+    components, grid, n, samples = _sample_streams(
+        pixels, width, height, color_type, config, batched)
     max_h, max_v = max_sampling(components)
     streams = []
     for comp, x_cm in zip(components, samples):
         t = comp.quantization_table
         streams.append(fdct_quantize(x_cm, reciprocals[t], corrections[t]))
     if config.mode() == "interleaved":
-        return (_mcu_order(streams, components, grid),)
+        return (_mcu_order(streams, components, grid, n),)
     cropped = []
     for comp, x in zip(components, streams):
         cv = comp.vertical_sampling_factor
         ch = comp.horizontal_sampling_factor
         rows = _cdiv(_cdiv(height, 8), max_v // cv)
         cols = _cdiv(_cdiv(width, 8), max_h // ch)
-        x = x.view(64, grid[0] * cv, grid[1] * ch)[:, :rows, :cols]
-        cropped.append(x.reshape(64, rows * cols))
+        x = x.view(64, n, grid[0] * cv, grid[1] * ch)[:, :, :rows, :cols]
+        cropped.append(x.reshape(64, n * rows * cols))
     return tuple(cropped)
 
 
 def fn_cm_samples(pixels, width: int, height: int, color_type: ColorType,
-                  config: EncoderConfig):
+                  config: EncoderConfig, *, batched: bool = False):
     """The MCU-ordered, level-shifted sample stream of an interleaved
     scan, int16 (64, mcu_count * blocks_per_mcu): K8's input
     (``entropy.pallas_pack.fused_sample_pack_blocks``).  The same color
     conversion, padding, blockify and MCU column order as :func:`fn_cm`,
-    with no transform.  Raises ``ValueError`` for a config that is not
-    interleaved."""
+    ``batched`` included, with no transform.  Raises ``ValueError`` for
+    a config that is not interleaved."""
     if config.mode() != "interleaved":
         raise ValueError(f"fn_cm_samples takes an interleaved config, got "
                          f"{config.mode()}")
-    components, grid, samples = _sample_streams(pixels, width, height,
-                                                color_type, config)
-    return _mcu_order([x.to(torch.int16) for x in samples], components, grid)
+    components, grid, n, samples = _sample_streams(
+        pixels, width, height, color_type, config, batched)
+    return _mcu_order([x.to(torch.int16) for x in samples], components, grid,
+                      n)
