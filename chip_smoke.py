@@ -67,6 +67,25 @@ Phases, each printing its own lines and its wall seconds:
    (where the plan folds) and K5 at (a)'s and (b)'s rungs over the whole
    batch, and K7 on one of (e)'s 4K luma streams.
 
+9. bounded memory and streaming, at BASELINE config 5 (16384x16384
+   CMYK_AS_YCCK, q90, 4:2:0; ``make_ycck_rows``): (a) ``encode`` on the
+   chunked path, its rung, launches (K1 4 per chunk, K2, K3 and K5 once
+   per chunk and rung, K4 where the chunk's merge folds), warm MP/s
+   (median of 3), the stages of one encode beside its wall time, and peak
+   device memory; (b) ``encode_stream`` from a pull source at 37 MCU rows a
+   chunk, its pieces equal to (a)'s bytes, and again in a child process
+   that makes the rows on demand and reports its peak RSS growth; (c) the
+   top 16384x4096 of the image, its peak device memory within 10% of
+   (a)'s; (d) the image with optimized tables on the chunked multipass
+   path (4 sequential scans, K7 on every chunk), MP/s and peak memory
+   beside the coefficient store's size; (e) the chunked paths held to the
+   whole-image path's bytes (phases 5 and 6, the 4K 4:2:0 restart-64
+   image, ``encode`` with the block limit at 0); (f) a row source of
+   CUDA tensors, (c)'s bytes with no pixel copy to the card; (g) K1, K2
+   (mid-stream DC chain), K3, K4 where it folds, K5, K2 on a masked
+   1,048,576-block pack chunk and K7 at the path's shapes against their
+   plain versions, as phase 3.
+
 It prints a JSON line of the kernels (with every shape each was checked
 at), the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``.  Any failure raises, so the exit code is not 0 and no result
@@ -74,6 +93,7 @@ line is printed.  ``kernel_ab.py`` holds
 K2-K8 against another checkout's on one card.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -916,7 +936,7 @@ def phase_progressive(dev):
     e2e(enc, rgb)
     hint = progressive_stage_times(dev, rgb, enc.last_budget)
     print(f"  budget hint {hint} words per pack row, rung {enc.last_budget}")
-    return launches
+    return launches, out
 
 
 # Phase 8's BASELINE.md configurations (benchmarks/baseline_configs.py):
@@ -1098,21 +1118,29 @@ def batch_stage_times(dev, enc, imgs, w, h):
         print(f"    {k:56s} {v:9.4f} ms")
 
 
-def pack_merge_cases(params, spec, stream, budget, label):
+def pack_merge_cases(params, spec, stream, budget, label, dcdiff=None,
+                     valid=None):
     """K2, K3, K4 (where the merge plan folds) and K5 on ``stream`` as
-    ``_pack_scans_v2`` runs them at ``budget``: yields ``(key, kernel,
-    plain, read_bytes)`` in order, each case's inputs made by the kernel
-    of the case before it."""
+    ``_pack_scans_v2`` runs them at ``budget``, or as ``device_scan_pack``
+    runs them on a chunk given its mid-stream ``dcdiff`` and ``valid``
+    blocks (the strings past it zeroed before the merge): yields ``(key,
+    kernel, plain, read_bytes)`` in order, each case's inputs made by the
+    kernel of the case before it."""
     from tpuenc_torch.entropy import pallas_pack as pk
 
     Bp = -(-stream.shape[1] // 512) * 512
-    dcdiff = pk.dc_diffs_from_dc(stream[0], spec)
+    if dcdiff is None:
+        dcdiff = pk.dc_diffs_from_dc(stream[0], spec)
     args = (stream.contiguous(), dcdiff, params.dc, params.ac, spec, Bp,
             max(budget, 16))
     yield f"K2 pack_blocks {label}", lambda: pk.pack_blocks(*args), \
         lambda: pk.pack_blocks_ref(*args), \
         nbytes(stream, dcdiff, params.dc, params.ac)
     words, lens, _ = pk.pack_blocks(*args)
+    if valid is not None:
+        keep = torch.arange(Bp, device=lens.device) < valid
+        lens = torch.where(keep, lens, 0)
+        words = torch.where(keep[:, None], words, 0)
     n_sub = 128
     chunk, n2, caps, caps_f = pk.merge_plan(Bp, words.shape[1], budget, n_sub)
     margs = (words, lens, chunk, n_sub * n2, caps, caps[-1])
@@ -1326,6 +1354,540 @@ def phase_batch(dev, flagship_bytes):
     return paths, results
 
 
+# BASELINE config 5 (BASELINE.md:37; benchmarks/config5_device.py:24-51): a
+# 4-component CMYK image encoded as YCCK, 16K x 16K, q90, 4:2:0 (10 blocks
+# per MCU, 1,024 MCU rows, 10,485,760 blocks).  (c) and (f) take its top
+# 4,096 rows.
+CONFIG5 = 16384
+CONFIG5_C_ROWS = 4096
+
+
+def make_ycck_rows(w, h, y0, n):
+    """Rows [y0, y0 + n) of ``benchmarks/config5_device.py``'s
+    ``make_ycck(w, h)`` input: the planes x * 255 // w, y * 255 // h,
+    (x + y) * 255 // (w + h) and (x ^ y) % 160 with +-20 noise, the noise
+    drawn per row from ``default_rng((42, y))`` (not the script's one draw
+    for the whole image), so that the whole array and a pull source give
+    the same pixels with O(band) host memory."""
+    x = np.arange(w)
+    plane0 = (x * 255 // w).astype(np.int16)
+    plane2 = (np.arange(w + h) * 255 // (w + h)).astype(np.int16)
+    out = np.empty((n, w, 4), np.uint8)
+    row = np.empty((w, 4), np.int16)
+    for i, y in enumerate(range(y0, y0 + n)):
+        row[:, 0] = plane0
+        row[:, 1] = y * 255 // h
+        row[:, 2] = plane2[y:y + w]
+        row[:, 3] = (x ^ y) % 160
+        row += np.random.default_rng((42, y)).integers(-20, 20, (w, 4),
+                                                        dtype=np.int16)
+        np.clip(row, 0, 255, out=row)
+        out[i] = row
+    return out
+
+
+def make_ycck(w, h):
+    return make_ycck_rows(w, h, 0, h)
+
+
+def config5_encoder(device, optimized=False):
+    from tpuenc_torch import Encoder, SamplingFactor
+
+    enc = Encoder(90, device=device)
+    enc.set_sampling_factor(SamplingFactor.F_2_2)
+    enc.set_optimized_huffman_tables(optimized)
+    return enc
+
+
+def scan_payloads(jpeg):
+    """The entropy payload of each scan of a file of this encoder: after
+    each SOS header, up to the next SOS or EOI (every DHT comes before the
+    first SOS, and entropy bytes never hold 0xFF 0xDA)."""
+    out = [p[(p[0] << 8) | p[1]:] for p in jpeg.split(b"\xff\xda")[1:]]
+    out[-1] = out[-1][:-2]
+    return out
+
+
+class ChunkedStages:
+    """The stages of chunked encodes, from wrappers around
+    ``entropy.chunked``'s upload, pack, host copy and stuffer (restored on
+    exit): on the card (CUDA events), each upload and each chunk's span
+    from the end of its upload to the end of its first pack, and each
+    re-pack's; on the host clock, the uploads (the pageable copy, and the
+    wait for the stream's queued work that it starts with), the launches of
+    each chunk from its upload to its first pack returning, the waits for
+    each chunk's ``meta``, the copies of the used words, the stuffer and
+    the file's assembly (``Encoder._assemble_scans``); and every pack's
+    (blocks, budget)."""
+
+    def __init__(self):
+        from tpuenc_torch.api import Encoder
+        from tpuenc_torch.entropy import chunked
+
+        self.mod = chunked
+        self.encoder = Encoder
+        self.real = (chunked._upload, chunked._pack, chunked.HostCopy.fetch,
+                     chunked.StreamingStuffer.add_chunk, Encoder._assemble_scans)
+        self.upload, self.chunks, self.repacks, self.packs = [], [], [], []
+        self.host = {k: 0.0 for k in ("upload", "launch", "meta", "words",
+                                      "stuff", "assembly")}
+        self.words_bytes = 0
+        self._after_upload = None
+
+    @staticmethod
+    def _event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def __enter__(self):
+        upload, pack, fetch, add, assemble = self.real
+
+        def timed_upload(slab, device):
+            a = self._event()
+            t0 = time.perf_counter()
+            out = upload(slab, device)
+            self._uploaded = time.perf_counter()
+            self.host["upload"] += self._uploaded - t0
+            self._after_upload = self._event()
+            self.upload.append((a, self._after_upload))
+            return out
+
+        def timed_pack(blocks, dcdiff, valid, spec, params, budget):
+            a = self._event()
+            out = pack(blocks, dcdiff, valid, spec, params, budget)
+            b = self._event()
+            self.packs.append((blocks.shape[1], budget))
+            if self._after_upload is not None:
+                self.chunks.append((self._after_upload, b))
+                self.host["launch"] += time.perf_counter() - self._uploaded
+                self._after_upload = None
+            else:
+                self.repacks.append((a, b))
+            return out
+
+        def timed_fetch(copier, ready, **tensors):
+            t0 = time.perf_counter()
+            out = fetch(copier, ready, **tensors)
+            key = "words" if "words" in tensors else "meta"
+            self.host[key] += time.perf_counter() - t0
+            if key == "words":
+                self.words_bytes += nbytes(tensors["words"])
+            return out
+
+        def timed_add(stuffer, words, nbits, lens):
+            t0 = time.perf_counter()
+            out = add(stuffer, words, nbits, lens)
+            self.host["stuff"] += time.perf_counter() - t0
+            return out
+
+        def timed_assemble(enc, *args):
+            t0 = time.perf_counter()
+            out = assemble(enc, *args)
+            self.host["assembly"] += time.perf_counter() - t0
+            return out
+
+        m = self.mod
+        m._upload, m._pack = timed_upload, timed_pack
+        m.HostCopy.fetch, m.StreamingStuffer.add_chunk = timed_fetch, timed_add
+        self.encoder._assemble_scans = timed_assemble
+        return self
+
+    def __exit__(self, *exc):
+        m = self.mod
+        (m._upload, m._pack, m.HostCopy.fetch, m.StreamingStuffer.add_chunk,
+         self.encoder._assemble_scans) = self.real
+        torch.cuda.synchronize()
+
+    def report(self, wall_s):
+        def ms(pairs):
+            return [a.elapsed_time(b) for a, b in pairs]
+
+        up, dev, rep = sum(ms(self.upload)), ms(self.chunks), sum(ms(self.repacks))
+        host = {k: v * 1e3 for k, v in self.host.items()}
+        total = up + sum(dev) + rep + host["words"] + host["stuff"]
+        wall = wall_s * 1e3
+        print(f"    pixel upload, {len(self.upload)} slabs: {up:.3f} ms on the "
+              f"card (events), {host['upload']:.3f} ms host clock")
+        print(f"    device per chunk (events, from its upload to its pack): "
+              f"{sum(dev) / len(dev):.3f} ms x {len(dev)} = {sum(dev):.3f} ms; "
+              f"{len(self.repacks)} re-packs {rep:.3f} ms")
+        print(f"    D2H of the used words ({self.words_bytes / 2**20:.1f} MiB "
+              f"into page-locked memory, host clock) {host['words']:.3f} ms")
+        print(f"    StreamingStuffer (host clock) {host['stuff']:.3f} ms")
+        print(f"    wall {wall:.3f} ms beside the stages' sum {total:.3f} ms "
+              f"(uploads and chunk spans on the card, D2H, stuffer)")
+        print(f"    host clock: uploads {host['upload']:.3f}, launches "
+              f"{host['launch']:.3f}, waits for meta {host['meta']:.3f}, "
+              f"words {host['words']:.3f}, stuffer {host['stuff']:.3f}, file "
+              f"assembly {host['assembly']:.3f}, the rest "
+              f"{wall - sum(host.values()):.3f} ms; lookahead-1 left the host "
+              f"waiting {host['meta']:.3f} ms for {sum(dev) + rep:.3f} ms of "
+              f"chunk spans")
+
+
+def expected_pack_launches(packs):
+    """K2, K3, K5 once per pack and K4 once per pack whose merge folds."""
+    from tpuenc_torch.entropy import pallas_pack as pk
+
+    folds = sum(pk.merge_plan(-(-b // 512) * 512,
+                              pk.final_block_cap(max(budget, 16)),
+                              budget)[3] is not None for b, budget in packs)
+    return {"pack_blocks": len(packs), "merge_chunks": len(packs),
+            "fold_rows": folds, "concat_rows": len(packs)}
+
+
+def peak_encode(dev, run):
+    """``run()`` with every launch count set to 0 and the peak device
+    memory reset just before it: (result, launches, peak bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, launches = counted(run)
+    return out, launches, torch.cuda.max_memory_allocated(dev)
+
+
+def h2d_copies(run):
+    """The number and time of host-to-device copies over one ``run()``
+    (``torch.profiler``)."""
+    tl = device_timeline(run, "tpuenc config 5")
+    if tl is None:
+        raise AssertionError("the profiler saw no device activity")
+    return tl["HtoD"]
+
+
+# The streaming child of phase 9 (b): rows made on demand by the pull
+# source, the pieces hashed and dropped; prints one JSON line.
+STREAM_CHILD = """
+import hashlib, json, sys, threading, time
+
+def rss_kib():
+    for line in open("/proc/self/status"):
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1])
+
+def sample(most, done):
+    while not done.wait(0.002):
+        most[0] = max(most[0], rss_kib())
+
+rss = {"start": rss_kib()}
+import torch
+import chip_smoke as c
+from tpuenc_torch import ColorType
+rss["torch imported"] = rss_kib()
+torch.zeros(1, device="cuda")
+rss["CUDA context"] = rss_kib()
+w = h = c.CONFIG5
+enc = c.config5_encoder("cuda")
+small = c.make_ycck_rows(512, 64, 0, 64)
+b"".join(enc.encode_stream(small, 512, 64, ColorType.CMYK_AS_YCCK))
+rss["small encode"] = before = rss_kib()
+digest, n_bytes, n_pieces = hashlib.sha256(), 0, 0
+most, done = [before], threading.Event()
+sampler = threading.Thread(target=sample, args=(most, done))
+sampler.start()
+t0 = time.perf_counter()
+try:
+    for piece in enc.encode_stream(lambda y0, n: c.make_ycck_rows(w, h, y0, n),
+                                   w, h, ColorType.CMYK_AS_YCCK,
+                                   chunk_mcu_rows=37):
+        digest.update(piece)
+        n_bytes += len(piece)
+        n_pieces += 1
+finally:
+    done.set()
+    sampler.join()
+rss["after the stream"] = rss_kib()
+print(json.dumps({"seconds": time.perf_counter() - t0, "bytes": n_bytes,
+                  "pieces": n_pieces, "sha256": digest.hexdigest(),
+                  "rss_before_kib": before, "peak_kib": most[0],
+                  "rss_kib": rss}))
+"""
+
+
+def phase_config5(dev, flagship_bytes, progressive_bytes):
+    """Phase 9: bounded memory and streaming at BASELINE config 5."""
+    import hashlib
+
+    from tpuenc_torch import ColorType, api
+    from tpuenc_torch.entropy import device_encode as de
+
+    ct = ColorType.CMYK_AS_YCCK
+    w = h = CONFIG5
+    mp = w * h / 1e6
+    t0 = time.perf_counter()
+    img = make_ycck(w, h)
+    print(f"  input {w}x{h}x4, {img.nbytes / 2**30:.2f} GiB, made in "
+          f"{time.perf_counter() - t0:.2f} s")
+    paths = {}
+
+    # (a) encode on the chunked path.
+    enc = config5_encoder(dev)
+    with ChunkedStages() as st:
+        out_a, launches, peak_a = peak_encode(
+            dev, lambda: enc.encode(img, w, h, ct))
+    n_chunks = len(st.chunks)
+    want_chunks = -(-h // (64 * 16))  # 64 MCU rows of 16 pixel rows
+    print(f"  (a) {len(out_a)} bytes, path {enc.last_encode_path}, rung "
+          f"{enc.last_budget}, {n_chunks} chunks, packs (blocks, rung) "
+          f"{st.packs}, peak device memory {peak_a / 2**20:.1f} MiB, "
+          f"launches {launches}")
+    if enc.last_encode_path != "device-chunked":
+        raise AssertionError(f"(a) ran on {enc.last_encode_path}")
+    check_jpeg(out_a)
+    want = {"fdct_quantize": 4 * n_chunks, **expected_pack_launches(st.packs)}
+    got = {k: launches[k] for k in want}
+    if got != want or n_chunks != want_chunks:
+        raise AssertionError(f"(a) launches {got}, want {want} over "
+                             f"{want_chunks} chunks")
+    check_launches(launches, ["fdct_quantize", "pack_blocks", "merge_chunks",
+                              "concat_rows"],
+                   ["pack_acbands", "hist_count", "fused_sample_pack",
+                    "hist_sym"])
+    paths["config5_interleaved"] = launches
+    times = []
+    for i in range(3):  # the third run records its stages
+        with ChunkedStages() if i == 2 else contextlib.nullcontext() as st:
+            t0 = time.perf_counter()
+            enc.encode(img, w, h, ct)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    print(f"  (a) encode warm, median of 3: {med * 1e3:.1f} ms = {mp / med:.1f} "
+          f"MP/s (runs ms: {' '.join(f'{t * 1e3:.1f}' for t in times)}); the "
+          f"stages of the third:")
+    st.report(times[-1])
+
+    # (b) streaming from a pull source at another chunk height.
+    pieces = list(enc.encode_stream(lambda y0, n: img[y0:y0 + n], w, h, ct,
+                                    chunk_mcu_rows=37))
+    if b"".join(pieces) != out_a:
+        raise AssertionError("(b) the streamed pieces differ from (a)'s bytes")
+    print(f"  (b) encode_stream, 37 MCU rows a chunk: {len(pieces)} pieces, "
+          f"joined == (a)'s bytes (path {enc.last_encode_path})")
+    res = subprocess.run([sys.executable, "-c", STREAM_CHILD], cwd=HERE,
+                         capture_output=True, text=True, check=True)
+    child = json.loads(res.stdout.strip().splitlines()[-1])
+    if child["sha256"] != hashlib.sha256(out_a).hexdigest():
+        raise AssertionError("(b) the child's stream differs from (a)'s bytes")
+    growth = child["peak_kib"] - child["rss_before_kib"]
+    print(f"  (b) child, rows made on demand: {child['pieces']} pieces, "
+          f"{child['bytes']} bytes == (a)'s, {child['seconds']:.2f} s; RSS "
+          f"{child['rss_before_kib'] / 2**10:.1f} MiB before the stream, its "
+          f"peak over the stream (sampled every 2 ms) "
+          f"{child['peak_kib'] / 2**10:.1f} MiB: growth {growth / 2**10:.1f} "
+          f"MiB against the {img.nbytes / 2**20:.0f} MiB input it never "
+          f"holds; RSS MiB at " + ", ".join(
+              f"{k} {v / 2**10:.1f}" for k, v in child["rss_kib"].items()))
+
+    # (c) a quarter of the rows: the same chunks, so the same peak.  The
+    # image is within the whole-image limits, so the chunked path is taken
+    # with the block limit at 0, and the whole-image path beside it.
+    img_c = img[:CONFIG5_C_ROWS]
+    enc_c = config5_encoder(dev)
+    whole_c, _, peak_whole = peak_encode(
+        dev, lambda: enc_c.encode(img_c, w, CONFIG5_C_ROWS, ct))
+    limit = api.DEVICE_BLOCK_LIMIT
+    api.DEVICE_BLOCK_LIMIT = 0
+    try:
+        out_c, _, peak_c = peak_encode(
+            dev, lambda: enc_c.encode(img_c, w, CONFIG5_C_ROWS, ct))
+    finally:
+        api.DEVICE_BLOCK_LIMIT = limit
+    print(f"  (c) {w}x{CONFIG5_C_ROWS}, block limit 0: {len(out_c)} bytes, "
+          f"path {enc_c.last_encode_path}, rung {enc_c.last_budget}, peak "
+          f"device memory {peak_c / 2**20:.1f} MiB ({peak_c / peak_a:.3f} of "
+          f"(a)'s); the whole-image path: the same bytes, peak "
+          f"{peak_whole / 2**20:.1f} MiB")
+    if enc_c.last_encode_path != "device-chunked" or out_c != whole_c:
+        raise AssertionError("(c) the chunked path differs from the whole image")
+    if abs(peak_c - peak_a) > 0.1 * peak_a:
+        raise AssertionError("(c) not within 10% of (a)'s peak device memory")
+
+    # (f) a row source of CUDA tensors at (c)'s size.
+    dimg = torch.from_numpy(img_c).to(dev)
+    h2d_c = h2d_copies(lambda: b"".join(enc_c.encode_stream(
+        img_c, w, CONFIG5_C_ROWS, ct)))
+
+    def from_device():
+        return b"".join(enc_c.encode_stream(lambda y0, n: dimg[y0:y0 + n], w,
+                                            CONFIG5_C_ROWS, ct))
+
+    if from_device() != out_c:
+        raise AssertionError("(f) the device row source differs from (c)'s bytes")
+    h2d_f = h2d_copies(from_device)
+    print(f"  (f) CUDA-tensor rows: == (c)'s bytes; H2D copies over one "
+          f"encode: {h2d_f[0]} ({h2d_f[1]:.3f} ms), beside (c)'s host array "
+          f"{h2d_c[0]} ({h2d_c[1]:.3f} ms)")
+    if h2d_f[0] != 0:
+        raise AssertionError("(f) copied pixels to the card")
+    del dimg
+
+    # (d) optimized tables: the chunked multipass path.
+    enc_d = config5_encoder(dev, optimized=True)
+    out_d, launches_d, peak_d = peak_encode(
+        dev, lambda: enc_d.encode(img, w, h, ct))
+    store = 128 * sum(de._plan(w, h, ct, enc_d._config())[0]
+                      ["comp_block_counts"])
+    print(f"  (d) {len(out_d)} bytes, path {enc_d.last_encode_path}, rung "
+          f"{enc_d.last_budget}, peak device memory {peak_d / 2**20:.1f} MiB "
+          f"beside the store's {store / 2**20:.1f} MiB, launches {launches_d}")
+    if enc_d.last_encode_path != "device-chunked-multipass" or \
+            out_d.count(b"\xff\xda") != 4:
+        raise AssertionError("(d) not 4 scans on the chunked multipass path")
+    check_jpeg(out_d)
+    if launches_d["hist_count"] != 4 * want_chunks or \
+            launches_d["fdct_quantize"] != 4 * want_chunks:
+        raise AssertionError("(d) K1 and K7 not 4 per chunk")
+    check_launches(launches_d, ["fdct_quantize", "hist_count", "pack_blocks",
+                                "merge_chunks", "concat_rows"],
+                   ["pack_acbands", "fused_sample_pack", "hist_sym"])
+    paths["config5_multipass"] = launches_d
+    med, times = host_median(lambda: enc_d.encode(img, w, h, ct), 3)
+    print(f"  (d) encode warm, median of 3: {med * 1e3:.1f} ms = {mp / med:.1f} "
+          f"MP/s (runs ms: {' '.join(f'{t * 1e3:.1f}' for t in times)})")
+
+    config5_anchors(dev, flagship_bytes, progressive_bytes)
+    results = config5_kernel_checks(dev, img, enc.last_budget,
+                                    enc_d.last_budget)
+    return paths, results
+
+
+def config5_anchors(dev, flagship_bytes, progressive_bytes):
+    """Phase 9 (e): the chunked paths against the whole-image path."""
+    from tpuenc_torch import ColorType, Encoder, SamplingFactor, api
+    from tpuenc_torch.entropy.chunked import encode_interleaved_chunked
+    from tpuenc_torch.entropy.chunked_multipass import encode_multipass_chunked
+    from tpuenc_torch.jfif import segments
+
+    rgb = make_rgb(FLAGSHIP_W, FLAGSHIP_H)
+    shape = (FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB)
+    enc = Encoder(90, device=dev)
+    config = enc._config()
+    got = encode_interleaved_chunked(rgb, *shape, config,
+                                     enc._default_tables(config)[2],
+                                     chunk_mcu_rows=16)
+    if [got] != scan_payloads(flagship_bytes):
+        raise AssertionError("(e) chunked flagship differs from phase 5's scan")
+    print("  (e) flagship, 16 MCU rows a chunk: == phase 5's scan payload")
+
+    enc = progressive_encoder(dev)
+    config = enc._config()
+    _, huffman, params = enc._default_tables(config)
+    got = encode_multipass_chunked(rgb, *shape, config, huffman, params,
+                                   chunk_mcu_rows=16, pack_chunk=1 << 16)
+    head = progressive_bytes[:progressive_bytes.index(b"\xff\xda")]
+    dhts = [segments.dht(k, i, t) for i, pair in enumerate(huffman[:2])
+            for k, t in enumerate(pair)]
+    if got != scan_payloads(progressive_bytes) or \
+            not all(d in head for d in dhts):
+        raise AssertionError("(e) chunked multipass differs from phase 6's file")
+    print(f"  (e) progressive + optimized flagship, 16 MCU rows and 65,536-block "
+          f"pack chunks: == phase 6's {len(got)} scan payloads and DHTs")
+
+    uhd = make_rgb(UHD_W, UHD_H)
+    enc = Encoder(80, device=dev)
+    enc.set_sampling_factor(SamplingFactor.F_2_2)
+    enc.set_restart_interval(64)
+    config = enc._config()
+    whole = enc.encode(uhd, UHD_W, UHD_H, ColorType.RGB)
+    got = encode_interleaved_chunked(uhd, UHD_W, UHD_H, ColorType.RGB, config,
+                                     enc._default_tables(config)[2],
+                                     chunk_mcu_rows=7)
+    if [got] != scan_payloads(whole):
+        raise AssertionError("(e) chunked 4K 4:2:0 restart 64 differs")
+    print("  (e) 4K 4:2:0 restart 64, 7 MCU rows a chunk (segments across "
+          "chunk edges): == its whole-image scan payload")
+
+    limit = api.DEVICE_BLOCK_LIMIT
+    api.DEVICE_BLOCK_LIMIT = 0
+    try:
+        enc = Encoder(90, device=dev)
+        out = enc.encode(rgb, *shape)
+    finally:
+        api.DEVICE_BLOCK_LIMIT = limit
+    if out != flagship_bytes or enc.last_encode_path != "device-chunked":
+        raise AssertionError("(e) encode over a lowered limit differs")
+    print(f"  (e) encode with DEVICE_BLOCK_LIMIT 0: path "
+          f"{enc.last_encode_path}, == phase 5's file")
+
+
+def config5_kernel_checks(dev, img, rung, rung_d):
+    """Phase 9 (g): the kernels at the chunked paths' shapes against their
+    plain versions, as phase 3 holds them."""
+    from tpuenc_torch import ColorType
+    from tpuenc_torch.entropy import device_encode as de
+    from tpuenc_torch.entropy import pallas_hist as ph
+    from tpuenc_torch.entropy import pallas_pack as pk
+    from tpuenc_torch.kernels import pallas_fdct, pipeline
+
+    ct = ColorType.CMYK_AS_YCCK
+    w = CONFIG5
+    rows = 64 * 16  # one chunk: 64 MCU rows of 16 pixels
+    results = {}
+    enc = config5_encoder(dev)
+    config = enc._config()
+    params = enc._default_tables(config)[2]
+    px0 = torch.from_numpy(img[:rows]).to(dev)
+    px1 = torch.from_numpy(img[rows:2 * rows]).to(dev)
+
+    y = pipeline._sample_streams(px1, w, rows, ct, config)[3][0]
+    r, c = params.reciprocals[0], params.corrections[0]
+    print(f"  (g) K1 on a chunk's Y blocks: {y.shape[1]}")
+    check_kernel(results, "K1 fdct_quantize config 5 chunk",
+                 lambda: pallas_fdct.fdct_quantize(y, r, c),
+                 lambda: pallas_fdct.fdct_quantize_ref(y, r, c),
+                 nbytes(y, r, c), reps=5)
+    del y
+
+    # Chunk 1's MCU stream, its DC chain continued from chunk 0's last MCU,
+    # under a restart interval of 100 MCUs (1,000 blocks), which the
+    # chunk's offset of 655,360 blocks is not a multiple of.
+    (mcu0,) = pipeline.fn_cm(px0, w, rows, ct, config, params.reciprocals,
+                             params.corrections)
+    (mcu1,) = pipeline.fn_cm(px1, w, rows, ct, config, params.reciprocals,
+                             params.corrections)
+    _, ((_, spec, _),), _ = de._plan(w, w, ct, config)
+    pat = len(spec.dc_tab_pattern)
+    spec = spec._replace(seg_blocks=100 * pat)
+    tail = mcu0[0, -pat:]
+    dcdiff = pk.dc_diffs_from_dc(mcu1[0], spec, prev_tail=tail,
+                                 global_offset=mcu0.shape[1])
+    print(f"  (g) chunk 1: {mcu1.shape[1]} blocks at offset {mcu0.shape[1]}, "
+          f"DC tail {tail.tolist()}, segments of {spec.seg_blocks} blocks, "
+          f"rung {rung}")
+    for case in pack_merge_cases(params, spec, mcu1, rung, "config 5 chunk",
+                                 dcdiff=dcdiff):
+        check_kernel(results, *case, reps=5)
+    del mcu0, mcu1, px0, dcdiff
+
+    # A pack chunk of the multipass store: the Y blocks of the top 4,096
+    # rows (1,048,576), as the chunk at offset 2^20 with its predecessor's
+    # DC and the last 4,321 blocks masked.
+    config_d = config5_encoder(dev, optimized=True)._config()
+    px = torch.from_numpy(img[:CONFIG5_C_ROWS]).to(dev)
+    store_y = pipeline.fn_cm(px, w, CONFIG5_C_ROWS, ct, config_d,
+                             params.reciprocals, params.corrections)[0]
+    spec_y = de._plan(w, w, ct, config_d)[1][0][1]
+    B = store_y.shape[1]
+    dcdiff = pk.dc_diffs_from_dc(store_y[0], spec_y,
+                                 prev_tail=store_y[0, -1:], global_offset=B)
+    print(f"  (g) pack chunk: {B} blocks, {B - 4321} valid, rung {rung_d}")
+    for case in pack_merge_cases(params, spec_y, store_y, rung_d,
+                                 "config 5 pack chunk", dcdiff=dcdiff,
+                                 valid=B - 4321):
+        check_kernel(results, *case, reps=5)
+    del store_y, px
+
+    luma = pipeline.fn_cm(px1, w, rows, ct, config_d, params.reciprocals,
+                          params.corrections)[0].contiguous()
+    print(f"  (g) K7 on a chunk's Y stream: {luma.shape[1]} blocks, band (1, 64)")
+    check_kernel(results, "K7 hist_count config 5 chunk",
+                 lambda: ph.hist_count(luma, [(1, 64)]),
+                 lambda: ph.hist_count_ref(luma, [(1, 64)]), nbytes(luma),
+                 reps=5)
+    return results
+
+
 KERNELS = [
     # (name, counter key, results key, source, replaces)
     ("K1 fdct_quantize", "fdct_quantize", "K1 fdct_quantize",
@@ -1358,17 +1920,24 @@ def main():
         launches, flagship["bytes"], flagship["rung"] = phase_flagship(dev)
         return launches
 
+    def phase_6():
+        launches, flagship["progressive"] = phase_progressive(dev)
+        return launches
+
     phases = [("1. environment", phase_env), ("2. build", phase_build),
               ("3. kernels vs plain versions (flagship shapes, tolerance 0)",
                lambda: phase_kernels(dev)),
               ("4. fixtures", lambda: phase_fixtures(dev)),
               ("5. flagship, interleaved", phase_5),
-              ("6. flagship, progressive with optimized tables",
-               lambda: phase_progressive(dev)),
+              ("6. flagship, progressive with optimized tables", phase_6),
               ("7. flagship, interleaved, fused P1 (K8)",
                lambda: phase_fused(dev, flagship["bytes"], flagship["rung"])),
               ("8. batch (encode_batch: single program, per image)",
-               lambda: phase_batch(dev, flagship["bytes"]))]
+               lambda: phase_batch(dev, flagship["bytes"])),
+              ("9. bounded memory and streaming (BASELINE config 5, "
+               "16384x16384 YCCK)",
+               lambda: phase_config5(dev, flagship["bytes"],
+                                     flagship["progressive"]))]
     out = {}
     for title, fn in phases:
         print(f"== {title}")
@@ -1378,11 +1947,12 @@ def main():
             tests_only = {k.__name__: k.launches for k in counted_kernels()}
         print(f"   ({time.perf_counter() - t0:.2f} s)")
     batch_paths, batch_results = out[phases[7][0]]
-    results = {**out[phases[2][0]], **batch_results}
+    config5_paths, config5_results = out[phases[8][0]]
+    results = {**out[phases[2][0]], **batch_results, **config5_results}
     paths = {"interleaved": out[phases[4][0]],
              "progressive_optimized": out[phases[5][0]],
              "interleaved_fused": out[phases[6][0]],
-             **batch_paths}
+             **batch_paths, **config5_paths}
 
     kernels = []
     for name, counter, key, source, replaces in KERNELS:
@@ -1404,7 +1974,7 @@ def main():
             "library_ms": None,
             "path": "+".join(by_path), "launches_by_path": by_path,
             # Every shape the kernel was held against its plain version
-            # at (phase 3's and the batches' of phase 8).
+            # at (phase 3's, the batches' of phase 8 and phase 9's).
             "checks": [{"case": k, "max_abs_err": v["err"], "ms": v["ms"],
                         "device_ms": v["device_ms"], "plain_ms": v["plain_ms"],
                         "bound_ms": v["bound"]} for k, v in cases.items()],

@@ -118,23 +118,33 @@ def test_optimized_tables_follow_each_image():
 
 def test_pack_rows_count_every_scan():
     """The whole-image limit counts one pack row per block per scan: a
-    64-scan 4096x4096 RGB plan has 50M rows and is refused up front."""
+    64-scan 4096x4096 RGB plan has 50M rows and routes to the chunked
+    multipass path, a 2-scan plan of the same image stays whole."""
     enc = tt.Encoder(90, device="cpu")
     enc.set_progressive_scans(64)
-    with pytest.raises(NotImplementedError, match="M9"):
-        enc._check_supported(enc._config(), 4096, 4096, tt.ColorType.RGB)
+    assert enc._route(enc._config(), 4096, 4096, tt.ColorType.RGB) == \
+        "device-chunked-multipass"
     enc.set_progressive_scans(2)
-    enc._check_supported(enc._config(), 4096, 4096, tt.ColorType.RGB)
+    assert enc._route(enc._config(), 4096, 4096, tt.ColorType.RGB) == \
+        "device-v2"
 
 
 def test_import_leaves_out_jax():
-    """Importing the port (and encoding, split and fused) loads neither jax
-    nor tpuenc."""
+    """Importing the port and encoding (split, fused, through the chunked
+    path with the limit forced down, and streamed) loads neither jax nor
+    tpuenc."""
     code = (
         "import sys, numpy as np, tpuenc_torch as t\n"
+        "from tpuenc_torch import api\n"
+        "px = np.zeros((8, 8, 3), np.uint8)\n"
         "for f in (False, True):\n"
         "    t.Encoder(90, device='cpu', fused_p1=f).encode("
-        "np.zeros((8, 8, 3), np.uint8), 8, 8, t.ColorType.RGB)\n"
+        "px, 8, 8, t.ColorType.RGB)\n"
+        "api.DEVICE_BLOCK_LIMIT = 0\n"
+        "e = t.Encoder(90, device='cpu')\n"
+        "e.encode(px, 8, 8, t.ColorType.RGB)\n"
+        "assert e.last_encode_path == 'device-chunked', e.last_encode_path\n"
+        "b''.join(e.encode_stream(px, 8, 8, t.ColorType.RGB))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'tpuenc')]\n"
         "assert not bad, bad\n"
     )
@@ -163,15 +173,16 @@ def test_unsupported_modes_raise(setup, match):
 
 
 def test_unsupported_entry_points_raise():
+    """The entry points that raised NotImplementedError naming M8 and M9
+    now encode: encode_batch and encode_stream return encode's bytes, and
+    a 16384x16384 image routes to the chunked path."""
     enc = tt.Encoder(90, device="cpu")
     px = np.zeros((16, 16, 3), np.uint8)
-    # encode_batch (ROADMAP M8) is ported: it returns what encode returns.
-    assert enc.encode_batch([px], 16, 16, tt.ColorType.RGB) == [
-        enc.encode(px, 16, 16, tt.ColorType.RGB)]
-    with pytest.raises(NotImplementedError, match="M9"):
-        enc.encode_stream(px, 16, 16, tt.ColorType.RGB)
-    with pytest.raises(NotImplementedError, match="M9"):  # > 3M blocks
-        enc._check_supported(enc._config(), 16384, 16384, tt.ColorType.RGB)
+    want = enc.encode(px, 16, 16, tt.ColorType.RGB)
+    assert enc.encode_batch([px], 16, 16, tt.ColorType.RGB) == [want]
+    assert b"".join(enc.encode_stream(px, 16, 16, tt.ColorType.RGB)) == want
+    assert enc._route(enc._config(), 16384, 16384, tt.ColorType.RGB) == \
+        "device-chunked"
 
 
 def test_device_is_required():

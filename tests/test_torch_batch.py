@@ -157,14 +157,29 @@ def test_bad_input_raises():
                                            tpuenc.ColorType.RGB) == []
 
 
-def test_over_limit_batch_raises_naming_m9():
-    """A batch of images past the whole-image limits raises as encode does
-    (12.6M pack rows for 2048x2048 RGB in 64 scans)."""
+def test_over_limit_batch_raises_naming_m9(monkeypatch):
+    """A batch of images past the whole-image limits goes image by image,
+    each through encode's chunked path, as tpuenc's batch does (12.6M pack
+    rows for 2048x2048 RGB in 64 scans; a small batch with the block limit
+    forced down)."""
+    from tpuenc_torch import api
+
     enc = tt.Encoder(90, device="cpu")
     enc.set_progressive_scans(64)
-    px = np.zeros((2048, 2048, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="M9"):
-        enc.encode_batch([px, px], 2048, 2048, tt.ColorType.RGB)
+    assert api._over_limits(2048, 2048, tt.ColorType.RGB, enc._config())
+    assert enc._route(enc._config(), 2048, 2048, tt.ColorType.RGB) == \
+        "device-chunked-multipass"
+
+    imgs = _images(2, 40, 24, 3, 5)
+    monkeypatch.setattr(api, "DEVICE_BLOCK_LIMIT", 10)
+    for scans in (None, 3):
+        enc = _setup(tt.Encoder(90, device="cpu"), scans=scans)
+        files = enc.encode_batch(imgs, 40, 24, tt.ColorType.RGB)
+        assert enc.last_encode_path == "device-batch-per-image"
+        one = _setup(tt.Encoder(90, device="cpu"), scans=scans)
+        assert files == [one.encode(im, 40, 24, tt.ColorType.RGB)
+                         for im in imgs]
+        assert one.last_encode_path.startswith("device-chunked")
 
 
 def _config(sf="F_1_1", restart=None, progressive=None, opt=False):

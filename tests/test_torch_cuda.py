@@ -758,3 +758,108 @@ def test_pinned_staging_reused_across_batches(dev):
     assert enc.encode_batch(big, 500, 300, ColorType.RGB) == first * 4
     assert pinned._buf.numel() > buf.numel()
     assert enc._pinned is pinned
+
+
+# ---------------------------------------------------------------------------
+# The bounded-memory paths: chunks of a longer stream.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("si", range(len(SPECS)))
+def test_k2_midstream_and_masked_pack_match_plain(dev, si):
+    """K2 with a mid-stream DC chain (a nonzero tail, an offset that is
+    not a multiple of the restart segment), and P1-P4 of the chunk with a
+    masked tail (device_scan_pack), against the plain versions."""
+    spec = SPECS[si]
+    pat = len(spec.dc_tab_pattern)
+    rng = np.random.default_rng(si)
+    B = 5000 * pat
+    q = (rng.laplace(0, 4, (64, B)) * (rng.random((64, B)) < 0.3)).astype(
+        np.int16)
+    q[0] = rng.integers(-500, 500, B)
+    tail = torch.from_numpy(rng.integers(-500, 500, pat).astype(np.int32))
+    go = 37 * pat
+    out = {}
+    for d in (dev, "cpu"):
+        qs = torch.from_numpy(q).to(d)
+        pd = _params(d)
+        dcdiff = tpack.dc_diffs_from_dc(qs[0], spec, prev_tail=tail.to(d),
+                                        global_offset=go)
+        n = tpack.pack_blocks.launches
+        p1 = tpack.scan_pack_blocks(qs, spec, pd.dc, pd.ac, 16, dcdiff=dcdiff)
+        packed = tpack.device_scan_pack(qs, spec, pd.dc, pd.ac, 16,
+                                        dcdiff=dcdiff, valid_blocks=B - 777)
+        torch.cuda.synchronize()
+        if d == dev:
+            assert tpack.pack_blocks.launches == n + 2
+        out[str(d)] = [t.cpu() for t in (dcdiff, *p1, *packed)]
+    for got, want in zip(out[str(dev)], out["cpu"]):
+        assert torch.equal(got, want)
+    assert not out["cpu"][6][B - 777:].any()
+
+
+def _chunked_encoder(device, sf="F_2_2", restart=0, opt=False):
+    from tpuenc_torch import Encoder, SamplingFactor
+
+    e = Encoder(90, device=device)
+    e.set_sampling_factor(SamplingFactor[sf])
+    e.set_restart_interval(restart)
+    e.set_optimized_huffman_tables(opt)
+    return e
+
+
+@pytest.mark.parametrize("restart,opt", [(0, False), (7, False), (0, True)])
+def test_chunked_encode_on_cuda_matches_cpu(dev, restart, opt, monkeypatch):
+    """A chunked encode on the card (the block limit forced down, several
+    chunks) equals the CPU path's bytes, and the whole-image path's."""
+    from tpuenc_torch import ColorType, api
+
+    rng = np.random.default_rng(restart)
+    w, h = 1000, 700
+    px = rng.integers(0, 256, (h, w, 4), np.uint8)
+    want = _chunked_encoder(dev, restart=restart, opt=opt).encode(
+        px, w, h, ColorType.CMYK_AS_YCCK)
+    monkeypatch.setattr(api, "DEVICE_BLOCK_LIMIT", 1000)
+    out = {}
+    for d in (dev, "cpu"):
+        e = _chunked_encoder(d, restart=restart, opt=opt)
+        out[str(d)] = e.encode(px, w, h, ColorType.CMYK_AS_YCCK)
+        assert e.last_encode_path == ("device-chunked-multipass" if opt
+                                      else "device-chunked")
+    assert out[str(dev)] == out["cpu"] == want
+    pieces = list(_chunked_encoder(dev, restart=restart, opt=opt)
+                  .encode_stream(px, w, h, ColorType.CMYK_AS_YCCK,
+                                 chunk_mcu_rows=5))
+    assert b"".join(pieces) == want
+
+
+def test_cuda_row_source(dev):
+    """Row slabs that are already CUDA tensors give the host array's
+    bytes; a slab on another device or short of rows raises."""
+    from tpuenc_torch import BadImageData, ColorType
+
+    rng = np.random.default_rng(5)
+    w, h = 96, 88
+    px = rng.integers(0, 256, (h, w, 3), np.uint8)
+    dpx = torch.from_numpy(px).to(dev)
+    enc = _chunked_encoder(dev, restart=2)
+    want = b"".join(enc.encode_stream(px, w, h, ColorType.RGB,
+                                      chunk_mcu_rows=3))
+    got = b"".join(enc.encode_stream(lambda y0, n: dpx[y0:y0 + n], w, h,
+                                     ColorType.RGB, chunk_mcu_rows=3))
+    assert got == want
+    with pytest.raises(ValueError):
+        b"".join(enc.encode_stream(lambda y0, n: dpx[y0:y0 + n].cpu(), w, h,
+                                   ColorType.RGB))
+    with pytest.raises(BadImageData):
+        b"".join(enc.encode_stream(lambda y0, n: dpx[y0:y0 + n - 1], w, h,
+                                   ColorType.RGB))
+
+
+def test_stuff_stream_raises_on_an_invalid_buffer(dev):
+    """The native flush refuses a range outside its buffer, where
+    tpuenc's binding returns None."""
+    from tpuenc_torch.entropy import native
+
+    with pytest.raises(ValueError):
+        native.stuff_stream(bytes(64), 0, 65)
+    assert native.stuff_stream(b"\xff" * 64, 0, 64) == b"\xff\x00" * 64

@@ -3,13 +3,16 @@
 A second package beside ``tpuenc`` (the JAX reference, byte for byte):
 the same ``Encoder`` API on an explicit PyTorch device, for interleaved,
 sequential and progressive scans with default or two-pass optimized
-Huffman tables, one image at a time or a batch (``encode_batch``).  On a CUDA device the coefficient stage (fDCT + zigzag +
-quantize, K1), the two-pass symbol counts (K7) and the entropy packer
-(P1-P4: K2, K6, K3-K5) run as hand-written CUDA kernels (``csrc/``, built
-with nvcc at first use), and ``Encoder(..., fused_p1=True)`` runs K8 in
-place of K1 and K2 on the interleaved mode; on the CPU the same path runs
-their plain PyTorch versions.  The host builds the optimized tables and finishes each
-scan with the native library (``native/entropy.cpp``).
+Huffman tables, one image at a time or a batch (``encode_batch``), at any
+size (past the whole-image limits through the bounded-memory chunked
+paths), or streamed in pieces (``encode_stream``).  On a CUDA device
+the coefficient stage (fDCT + zigzag + quantize, K1), the two-pass symbol
+counts (K7) and the entropy packer (P1-P4: K2, K6, K3-K5) run as
+hand-written CUDA kernels (``csrc/``, built with nvcc at first use), and
+``Encoder(..., fused_p1=True)`` runs K8 in place of K1 and K2 on the
+interleaved mode; on the CPU the same path runs their plain PyTorch
+versions.  The host builds the optimized tables and finishes each scan
+with the native library (``native/entropy.cpp``).
 
 This package imports ``torch`` and never ``jax`` or ``tpuenc``.
 """

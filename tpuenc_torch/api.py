@@ -8,13 +8,14 @@ On a CUDA device the coefficient stage and the entropy packer run as the
 port's CUDA kernels; on the CPU the same path runs their plain PyTorch
 versions.  Either way the bytes are the same.
 
-It encodes every mode of the whole-image path: interleaved, sequential
-and progressive (2-64 scans), with default or two-pass optimized Huffman
-tables, every color type and sampling factor, restart intervals and
-metadata; ``encode_batch`` encodes batches of same-shape images on one of
-two routes, each file byte for byte what ``encode`` gives.
-``encode_stream``, and images past the whole-image limits, raise
-``NotImplementedError`` naming their ROADMAP item.
+It encodes every mode: interleaved, sequential and progressive (2-64
+scans), with default or two-pass optimized Huffman tables, every color
+type and sampling factor, restart intervals and metadata.  Images past
+the whole-image limits go through the bounded-memory chunked paths
+(``entropy.chunked``, ``entropy.chunked_multipass``); ``encode_batch``
+encodes batches of same-shape images on one of two routes, each file byte
+for byte what ``encode`` gives; ``encode_stream`` yields the file in
+pieces as they are made, from an array or a pull source of pixel rows.
 """
 
 from __future__ import annotations
@@ -37,6 +38,11 @@ from .core.types import (
     init_components,
 )
 from .entropy import device_encode as de
+from .entropy.chunked import (
+    encode_interleaved_chunked,
+    iter_encode_interleaved_chunked,
+)
+from .entropy.chunked_multipass import encode_multipass_chunked
 from .entropy.device import scan_histograms
 from .entropy.huffopt import (
     budget_hint_from_bits,
@@ -48,10 +54,13 @@ from .kernels.pipeline import fn_cm, scan_layout
 
 __all__ = ["Encoder", "ImageBuffer"]
 
-# Routing limits of the whole-image device path (tpuenc/api.py:60-68).
-# Larger images need the bounded-memory chunked paths (ROADMAP M9).
+# Routing limits of the whole-image device path (tpuenc/api.py:60-68):
+# past either, an image goes through the bounded-memory chunked paths.
 DEVICE_BLOCK_LIMIT = 3_000_000
 DEVICE_PACK_ROWS_LIMIT = 12_000_000
+
+# A streamed plan of more scans comes as one body piece (tpuenc/api.py:416).
+STREAM_MAX_SCANS = 48
 
 
 def _plan_pack_rows(width, height, color_type, config) -> int:
@@ -62,6 +71,14 @@ def _plan_pack_rows(width, height, color_type, config) -> int:
         return len(layout["mcu_block_comps"]) * layout["mcu_count"]
     scans_per_comp = config.progressive_scans or 1  # 1 DC + (n-1) AC bands
     return sum(layout["comp_block_counts"]) * scans_per_comp
+
+
+def _over_limits(width, height, color_type, config) -> bool:
+    """Whether the encode is past the whole-image path's limits: its block
+    count, as ``tpuenc`` counts it, or the pack rows of its plan."""
+    return ((width // 8 + 1) * (height // 8 + 1) > DEVICE_BLOCK_LIMIT
+            or _plan_pack_rows(width, height, color_type, config)
+            > DEVICE_PACK_ROWS_LIMIT)
 
 
 def _check_dims(width: int, height: int) -> None:
@@ -164,9 +181,11 @@ class Encoder:
         # (entropy.device_encode.PinnedBuffer).
         self._pinned = None
         # Which path produced the last output: encode()'s "device-v2" (the
-        # counterpart of tpuenc's v2 device packer) or "device-v2-fused"
-        # (with K8), or encode_batch's route; and the budget rung (words
-        # per block) its packer used.
+        # counterpart of tpuenc's v2 device packer), "device-v2-fused"
+        # (with K8), "device-chunked" or "device-chunked-multipass" (past
+        # the whole-image limits), encode_stream's "device-chunked-stream",
+        # or encode_batch's route; and the budget rung (words per block)
+        # its packer used, the highest of a chunked encode's.
         self.last_encode_path: Optional[str] = None
         self.last_budget: Optional[int] = None
 
@@ -324,11 +343,96 @@ class Encoder:
             stacked = stacked[..., 0]
         return self._finish(self._encode_pixels(stacked, width, height, ct))
 
-    def encode_stream(self, *args, **kwargs):
-        raise NotImplementedError(
-            "encode_stream (bounded-memory streaming) is not ported yet: "
-            "ROADMAP M9"
-        )
+    def encode_stream(
+        self,
+        data,
+        width: int,
+        height: int,
+        color_type: ColorType,
+        chunk_mcu_rows: int = 64,
+    ):
+        """Streaming encode (tpuenc/api.py:295-389): a generator of byte
+        pieces whose concatenation is :meth:`encode`'s output, made and
+        released as the encode goes (the reference's streaming sink,
+        writer.rs:76-106, and MCU-row encode loop, encoder.rs:699-807).
+
+        ``data`` is laid out as for :meth:`encode`, or is a pull source: a
+        callable ``(y0, n) -> rows`` or an object with a ``get_rows(y0,
+        n)`` method, returning ``n`` rows from row ``y0`` as bytes, an
+        array, or a uint8 tensor already on the encoder's device
+        (``entropy.chunked.read_rows``).
+
+        The interleaved mode with default tables streams MCU-row bands of
+        ``chunk_mcu_rows`` through the chunked path, with O(chunk) device
+        memory, host memory and retained output: the prefix (leading
+        segments, frame header, SOS), one piece per band that has final
+        bytes, then EOI (``last_encode_path`` "device-chunked-stream").
+        Every other mode materializes the coefficients by design: a pull
+        source is drained once, and the file comes one scan per piece, the
+        first carrying the prefix, then EOI; a plan of more than
+        :data:`STREAM_MAX_SCANS` scans comes as one body piece.  The
+        pieces go to the caller only, not to the encoder's sink.
+        """
+        color_type = ColorType(color_type)
+        if callable(data) or hasattr(data, "get_rows"):
+            _check_dims(width, height)
+            source = data.get_rows if hasattr(data, "get_rows") else data
+            pixels = None
+        else:
+            source = None
+            pixels = _validate_pixels(data, width, height, color_type)
+        config = self._config()
+        if config.mode() != "interleaved":
+            if pixels is None:  # multi-pass needs the whole image
+                pixels = _validate_pixels(_drain_source(source, height),
+                                          width, height, color_type)
+            yield from self._stream_multipass(pixels, width, height,
+                                              color_type, config)
+            return
+
+        jct = color_type.jpeg_color_type
+        components = init_components(jct, config.sampling_factor)
+        q_tables, huffman, params = self._default_tables(config)
+        prefix = self._leading_segments(config, jct)
+        prefix += self._frame_header(width, height, components, q_tables,
+                                     huffman, config, len(components))
+        layout = scan_layout(width, height, color_type, config)
+        ((_, _, spectral),) = de.build_scan_plan(layout, components, config)
+        prefix += segments.sos(list(components), spectral)
+        yield bytes(prefix)
+
+        self.last_encode_path = "device-chunked-stream"
+        ladder = list(de.BUDGET_LADDER)
+        yield from iter_encode_interleaved_chunked(
+            pixels if source is None else source, width, height, color_type,
+            config, params, chunk_mcu_rows, ladder)
+        self.last_budget = ladder[0]
+        yield segments.marker(markers.EOI)
+
+    def _stream_multipass(self, pixels, width, height, color_type, config):
+        """Per-scan streaming of the multi-pass modes (tpuenc/api.py:391-476):
+        the coefficients are materialized by design (encoder.rs:810-864,
+        869-975), but each scan goes to the caller as it is written:
+        leading segments and frame header with the first scan, then each
+        further scan's SOS and payload, then EOI."""
+        jct = color_type.jpeg_color_type
+        components = init_components(jct, config.sampling_factor)
+        if len(components) * (config.progressive_scans or 1) > STREAM_MAX_SCANS:
+            yield self._encode_pixels(pixels, width, height, color_type)
+            return
+        q_tables, huffman, params = self._default_tables(config)
+        scans = self._scan_payloads(pixels, width, height, color_type, config,
+                                    huffman, params)
+        piece = bytes(self._leading_segments(config, jct)) + self._frame_header(
+            width, height, components, q_tables, huffman, config,
+            len(components))
+        layout = scan_layout(width, height, color_type, config)
+        plan = de.build_scan_plan(layout, components, config)
+        for (stream_idx, _, spectral), payload in zip(plan, scans):
+            yield piece + segments.sos([components[stream_idx]], spectral) \
+                + payload
+            piece = b""
+        yield segments.marker(markers.EOI)
 
     def encode_batch(
         self,
@@ -344,8 +448,9 @@ class Encoder:
         ``images``: an iterable of pixel buffers (bytes or arrays), each
         laid out as for :meth:`encode` and checked as it is.  The route
         is chosen up front from the batch's size, shape and settings
-        (``entropy.device_encode.batch_route``) and named in
-        ``last_encode_path``:
+        (``entropy.device_encode.batch_route``; images past the
+        whole-image limits always go image by image, as in ``tpuenc``) and
+        named in ``last_encode_path``:
 
         * ``"device-batch"``: interleaved, default tables, at most 3M
           blocks, a restart interval (if any) that divides each image's
@@ -369,9 +474,9 @@ class Encoder:
             _check_dims(width, height)
             return []
         config = self._config()
-        self._check_supported(config, width, height, color_type)
-        route = de.batch_route(len(pixel_arrays), width, height, color_type,
-                               config)
+        route = (de.PER_IMAGE if _over_limits(width, height, color_type, config)
+                 else de.batch_route(len(pixel_arrays), width, height,
+                                     color_type, config))
         if route == de.PER_IMAGE:
             results, rungs = [], []
             for px in pixel_arrays:
@@ -426,16 +531,17 @@ class Encoder:
             out += segments.segment(markers.APP(nr), data)
         return out
 
-    def _check_supported(self, config, width, height, color_type) -> None:
-        if (
-            (width // 8 + 1) * (height // 8 + 1) > DEVICE_BLOCK_LIMIT
-            or _plan_pack_rows(width, height, color_type, config)
-            > DEVICE_PACK_ROWS_LIMIT
-        ):
-            raise NotImplementedError(
-                "images over the whole-image device limits need the chunked "
-                "paths, not ported yet: ROADMAP M9"
-            )
+    def _route(self, config, width, height, color_type) -> str:
+        """The path of a single-image encode, as ``last_encode_path`` names
+        it (tpuenc/api.py:700-750): past the whole-image limits the
+        interleaved mode takes "device-chunked" (the split path even under
+        ``fused_p1``: there is no fused chunked path) and every other mode
+        "device-chunked-multipass"; within them "device-v2", or
+        "device-v2-fused" for the interleaved mode under ``fused_p1``."""
+        interleaved = config.mode() == "interleaved"
+        if _over_limits(width, height, color_type, config):
+            return "device-chunked" if interleaved else "device-chunked-multipass"
+        return "device-v2-fused" if self.fused_p1 and interleaved else "device-v2"
 
     def _default_tables(self, config):
         """The (luma, chroma) quantization tables, the default Huffman
@@ -458,23 +564,50 @@ class Encoder:
         self, pixels: np.ndarray, width: int, height: int, color_type: ColorType
     ) -> bytes:
         config = self._config()
-        self._check_supported(config, width, height, color_type)
         jct = color_type.jpeg_color_type
         components = init_components(jct, config.sampling_factor)
         q_tables, huffman, params = self._default_tables(config)
+        scans = self._scan_payloads(pixels, width, height, color_type, config,
+                                    huffman, params)
+        out = self._leading_segments(config, jct)
+        out += self._assemble_scans(
+            scans, width, height, color_type, config, components, q_tables,
+            huffman,
+        )
+        out += segments.marker(markers.EOI)
+        return bytes(out)
+
+    def _scan_payloads(self, pixels, width, height, color_type, config,
+                       huffman, params) -> List[bytes]:
+        """Every scan's entropy payload in plan order, on the route that
+        :meth:`_route` names, which goes to ``last_encode_path`` with the
+        budget rung to ``last_budget``.  ``huffman`` is replaced in place
+        by the optimized tables when the config asks for them."""
+        route = self._route(config, width, height, color_type)
+        if route.startswith("device-chunked"):
+            ladder = list(de.BUDGET_LADDER)
+            if route == "device-chunked":
+                scans = [encode_interleaved_chunked(
+                    pixels, width, height, color_type, config, params,
+                    ladder=ladder)]
+            else:
+                scans = encode_multipass_chunked(
+                    pixels, width, height, color_type, config, huffman, params,
+                    ladder=ladder)
+            self.last_encode_path, self.last_budget = route, ladder[0]
+            return scans
 
         if not pixels.flags.writeable:
             pixels = pixels.copy()
         px = torch.from_numpy(np.ascontiguousarray(pixels)).to(self.device)
-        # Routing by mode: only the interleaved scan has a fused route
-        # (optimized tables make the scans sequential).
-        fused = self.fused_p1 and config.mode() == "interleaved"
         if config.optimize_huffman_table:
             # Two passes (tpuenc/api.py:776-825): coefficients and
             # histograms on the device, one small copy of the counts, the
             # K.2 build per table on the host, and the same device streams
             # packed with the new tables, the ladder starting at the rung
             # that the exact stream size covers.
+            components = init_components(color_type.jpeg_color_type,
+                                         config.sampling_factor)
             streams = fn_cm(px, width, height, color_type, config,
                             params.reciprocals, params.corrections)
             hists = scan_histograms(streams, components,
@@ -489,18 +622,11 @@ class Encoder:
             )
         else:
             scans, budget = de.device_encode_scans(
-                px, width, height, color_type, config, params, fused_p1=fused
+                px, width, height, color_type, config, params,
+                fused_p1=route == "device-v2-fused",
             )
-        self.last_encode_path = "device-v2-fused" if fused else "device-v2"
-        self.last_budget = budget
-
-        out = self._leading_segments(config, jct)
-        out += self._assemble_scans(
-            scans, width, height, color_type, config, components, q_tables,
-            huffman,
-        )
-        out += segments.marker(markers.EOI)
-        return bytes(out)
+        self.last_encode_path, self.last_budget = route, budget
+        return scans
 
     def _assemble_scans(
         self, scan_payloads, width, height, color_type, config, components,
@@ -563,6 +689,17 @@ def optimize_tables(hists, huffman, width, height, color_type, config) -> int:
         exact_stream_bits(pairs, huffman[:len(pairs)]),
         _plan_pack_rows(width, height, color_type, config),
     )
+
+
+def _drain_source(source, height: int):
+    """The whole image from a pull source, in one request
+    (tpuenc/api.py:478-482)."""
+    rows = source(0, height)
+    if isinstance(rows, torch.Tensor):
+        return rows.cpu().numpy()
+    if isinstance(rows, (bytes, bytearray, memoryview)):
+        return np.frombuffer(rows, np.uint8)
+    return np.asarray(rows, dtype=np.uint8)
 
 
 def _freeze_qspec(spec):

@@ -1,0 +1,429 @@
+"""Bounded-memory interleaved encode: MCU-row chunks through the device.
+
+Counterpart of ``tpuenc/entropy/chunked.py``.  The image goes through the
+device in chunks of ``chunk_mcu_rows`` MCU rows: each chunk's pixel rows
+are read (from the whole array or from a pull source) and uploaded, turned
+into its MCU stream (``kernels.pipeline.fn_cm`` at the chunk's height,
+which pads the edges itself), and packed (P1-P4, ``pallas_pack``); the
+host appends the chunk's raw bits to a :class:`StreamingStuffer`, which
+hands back the scan bytes that became final.  Device memory, host memory
+and the transfers are all O(chunk), so a 16K x 16K 4-component image
+encodes past the whole-image path's limits.
+
+State across chunks is small and explicit: the DC predictor chain (the
+previous chunk's last ``pat`` DC values, taken from the input
+coefficients, feed ``dc_diffs_from_dc`` as ``prev_tail``) and the chunk's
+first block index in the scan (``global_offset``), which fixes the restart
+segments.  A restart segment may span chunks; the stuffer carries it.
+
+:func:`pack_chunks` runs the chunks with a lookahead of one: chunk i+1 is
+queued on the device before chunk i's results are read, so the host's
+stuffing of chunk i overlaps the device work of chunk i+1.  On one CUDA
+stream a plain ``.cpu()`` of chunk i would wait for chunk i+1's work as
+well, so the reads go through :class:`HostCopy`: a side stream behind an
+event recorded after chunk i's work, into page-locked memory.
+"""
+
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+import torch
+
+from ..core import errors
+from ..core.types import ColorType, EncoderConfig
+from ..kernels.pipeline import fn_cm, scan_layout
+from . import native
+from .device_encode import (
+    BUDGET_LADDER,
+    EncodeParams,
+    PinnedBuffer,
+    build_scan_plan,
+)
+from .pallas_pack import dc_diffs_from_dc, device_scan_pack
+
+
+def append_bits(dst: bytearray, dst_bits: int, src: np.ndarray,
+                src_bits: int) -> int:
+    """Append ``src_bits`` bits of ``src`` (uint8, MSB-first) to ``dst``
+    whose current length is ``dst_bits`` bits.  Returns the new bit
+    length.  Vectorized byte-granular shift; O(len(src))."""
+    if src_bits <= 0:
+        return dst_bits
+    nbytes = (src_bits + 7) >> 3
+    src = src[:nbytes]
+    rem_src = src_bits & 7
+    if rem_src:  # mask junk past the source's last valid bit
+        src = src.copy()
+        src[-1] &= (0xFF << (8 - rem_src)) & 0xFF
+    sh = dst_bits & 7
+    if sh == 0:
+        dst += src.tobytes()
+    else:
+        # First src byte ORs into dst's partial last byte; the rest are
+        # pairwise shifted.
+        hi = src >> sh
+        lo = (src << (8 - sh)) & 0xFF
+        dst[-1] |= int(hi[0])
+        tail = lo[:-1] | hi[1:]
+        dst += tail.tobytes()
+        dst.append(int(lo[-1]))
+    total = dst_bits + src_bits
+    del dst[(total + 7) >> 3:]
+    # Clear any stale bits past the new end in the final partial byte.
+    rem = total & 7
+    if rem:
+        dst[-1] &= (0xFF << (8 - rem)) & 0xFF
+    return total
+
+
+class BitAccumulator:
+    """Host-side raw bitstream accumulator for chunk streams."""
+
+    def __init__(self):
+        self.buf = bytearray()
+        self.bits = 0
+
+    def append_words(self, words: np.ndarray, nbits: int) -> None:
+        # Big-endian bytes of the packed words: ``byteswap`` is numpy's
+        # SIMD path; ``astype('>u4')`` converts element by element.
+        w = np.ascontiguousarray(words, dtype=np.uint32)
+        data = (w.byteswap() if sys.byteorder == "little" else w).view(np.uint8)
+        self.bits = append_bits(self.buf, self.bits, data, int(nbits))
+
+
+def _extract_bytes(buf: bytearray, rel_bit: int, nbytes: int) -> bytes:
+    """Whole output bytes [rel_bit, rel_bit + 8*nbytes) of the raw bit
+    buffer, MSB-first (vectorized shift)."""
+    if nbytes <= 0:
+        return b""
+    b0 = rel_bit >> 3
+    sh = rel_bit & 7
+    a = np.frombuffer(bytes(memoryview(buf)[b0:b0 + nbytes + 1]), np.uint8)
+    if sh == 0:
+        return a[:nbytes].tobytes()
+    if a.shape[0] < nbytes + 1:
+        a = np.concatenate([a, np.zeros(nbytes + 1 - a.shape[0], np.uint8)])
+    w = (a.astype(np.uint16) << 8)
+    out = ((w[:-1] | a[1:]) >> (8 - sh)).astype(np.uint8)
+    return out.tobytes()
+
+
+class StreamingStuffer:
+    """Incrementally turn the raw device bitstream into the final stuffed,
+    RST-marker-interleaved scan bytes with O(pending-chunk) memory.
+
+    Segments start byte-aligned in the output (1-padded tails), so any
+    whole output byte of the current segment is final as soon as its bits
+    exist: it is 0xFF-stuffed (0xFF -> 0xFF 0x00) and flushed at once,
+    the reference's streaming bit writer (writer.rs:138-202) at chunk
+    granularity.
+    """
+
+    def __init__(self, seg_blocks: int, total_blocks: int):
+        self.seg = max(int(seg_blocks), 1)
+        self.total = int(total_blocks)
+        self.n_seg = -(-self.total // self.seg) if self.total else 1
+        self.acc = BitAccumulator()
+        self.base_bit = 0       # absolute bit index of acc.buf[0] bit 0
+        self.read_bit = 0       # absolute next-unflushed bit
+        self.blocks_done = 0
+        self.seg_idx = 0
+        self.seg_bits = 0       # bits fed into the current segment so far
+        self.seg_flushed = 0    # whole bytes of the current segment flushed
+
+    def _seg_len(self, idx: int) -> int:
+        if idx == self.n_seg - 1:
+            return self.total - idx * self.seg
+        return self.seg
+
+    def add_chunk(self, words: np.ndarray, nbits: int,
+                  lens: np.ndarray) -> bytes:
+        """Feed one device chunk (packed words + per-block bit lengths);
+        returns the output bytes that became final."""
+        self.acc.append_words(words, nbits)
+        out = bytearray()
+        lens = np.asarray(lens, dtype=np.int64)
+        pos = 0
+        n = lens.shape[0]
+        while pos < n:
+            room = self._seg_len(self.seg_idx) - (
+                self.blocks_done - self.seg_idx * self.seg
+            )
+            take = min(room, n - pos)
+            self.seg_bits += int(lens[pos:pos + take].sum())
+            self.blocks_done += take
+            pos += take
+            if take == room:
+                self._finish_segment(out)
+        # Mid-segment: flush the whole bytes that are already final.  Runs
+        # of at least 64 KiB go through the native chunk-parallel stuffer;
+        # shorter ones through the numpy extract and bytes.replace.  Both
+        # give the same bytes.
+        avail = (self.seg_bits - 8 * self.seg_flushed) >> 3
+        if avail > 0:
+            rel = self.read_bit - self.base_bit
+            if avail >= (1 << 16):
+                stuffed = native.stuff_stream(self.acc.buf, rel, avail)
+            else:
+                stuffed = _extract_bytes(self.acc.buf, rel, avail).replace(
+                    b"\xff", b"\xff\x00")
+            out += stuffed
+            self.read_bit += 8 * avail
+            self.seg_flushed += avail
+        self._compact()
+        return bytes(out)
+
+    def _finish_segment(self, out: bytearray) -> None:
+        nbits = self.seg_bits - 8 * self.seg_flushed
+        if nbits > 0:
+            whole = nbits >> 3
+            raw = _extract_bytes(
+                self.acc.buf, self.read_bit - self.base_bit, whole
+            )
+            out += raw.replace(b"\xff", b"\xff\x00")
+            rem = nbits & 7
+            if rem:
+                rel = self.read_bit - self.base_bit + 8 * whole
+                b0 = rel >> 3
+                window = int.from_bytes(self.acc.buf[b0:b0 + 2], "big") \
+                    if b0 + 1 < len(self.acc.buf) else \
+                    int.from_bytes(self.acc.buf[b0:b0 + 1] + b"\x00", "big")
+                sh = rel & 7
+                bits = (window >> (16 - sh - rem)) & ((1 << rem) - 1)
+                pad = 8 - rem
+                byte = (bits << pad) | ((1 << pad) - 1)
+                out.append(byte)
+                if byte == 0xFF:
+                    out.append(0x00)
+            self.read_bit += nbits
+        self.seg_idx += 1
+        self.seg_bits = 0
+        self.seg_flushed = 0
+        if self.seg_idx < self.n_seg:
+            out += bytes((0xFF, 0xD0 + ((self.seg_idx - 1) & 7)))
+
+    def finish(self) -> bytes:
+        """Check that all blocks were fed; every byte was already flushed
+        by :meth:`add_chunk` (the last segment closes with its last
+        block)."""
+        if self.blocks_done != self.total:
+            raise ValueError(
+                f"fed {self.blocks_done} blocks, expected {self.total}"
+            )
+        if self.seg_idx != self.n_seg:
+            raise ValueError("segment accounting mismatch")
+        return b""
+
+    def _compact(self) -> None:
+        drop = (self.read_bit - self.base_bit) >> 3
+        if drop > 4096:
+            del self.acc.buf[:drop]
+            self.base_bit += 8 * drop
+            self.acc.bits -= 8 * drop
+
+
+def _upload(slab: np.ndarray, device) -> torch.Tensor:
+    """One chunk's host rows on ``device`` (a pageable copy)."""
+    if not slab.flags.writeable:  # torch.from_numpy warns on read-only arrays
+        slab = slab.copy()
+    return torch.from_numpy(np.ascontiguousarray(slab)).to(device)
+
+
+def read_rows(pixels, y0: int, n: int, width: int, color_type: ColorType,
+              device) -> torch.Tensor:
+    """Pixel rows [y0, y0 + n) as a uint8 (n, width[, C]) tensor on
+    ``device``.
+
+    ``pixels`` is the whole (H, W[, C]) array, or a pull source, a
+    callable ``(y0, n) -> rows``, the analog of the reference's
+    per-scanline ``ImageBuffer::fill_buffers`` (image_buffer.rs:86-98): it
+    returns bytes or an array of at least ``n * width`` pixels, or a uint8
+    ``torch.Tensor`` already on ``device`` (rows made by another program
+    on the card), which is checked and used there with no host round
+    trip.  Too few rows or bytes raise ``BadImageData``."""
+    bpp = color_type.bytes_per_pixel
+    need = n * width * bpp
+    if not callable(pixels):
+        return _upload(pixels[y0:y0 + n], device)
+    slab = pixels(y0, n)
+    if isinstance(slab, torch.Tensor):
+        if slab.device != torch.device(device) or slab.dtype != torch.uint8:
+            raise ValueError(f"row source gave a {slab.dtype} tensor on "
+                             f"{slab.device}, want uint8 on {device}")
+        if slab.ndim != (2 if bpp == 1 else 3) or (bpp > 1 and slab.shape[2] != bpp):
+            raise ValueError(f"row source gave shape {tuple(slab.shape)} for "
+                             f"{bpp} channel(s)")
+        if slab.shape[0] < n or slab.shape[1] < width:
+            raise errors.BadImageData(slab.shape[0] * slab.shape[1] * bpp, need)
+        return slab[:n, :width]
+    flat = np.frombuffer(slab, np.uint8) if isinstance(
+        slab, (bytes, bytearray, memoryview)
+    ) else np.asarray(slab, np.uint8).reshape(-1)
+    if flat.size < need:
+        raise errors.BadImageData(flat.size, need)
+    slab = flat[:need].reshape(n, width, bpp)
+    return _upload(slab[..., 0] if bpp == 1 else slab, device)
+
+
+class HostCopy:
+    """Host copies of device results that wait only for the work queued
+    before a mark.  On a CUDA device the copy runs on a side stream behind
+    the mark's event, into page-locked buffers reused by name, so it does
+    not wait for work queued after the mark; on the CPU the tensors are
+    already on the host."""
+
+    def __init__(self, device):
+        device = torch.device(device)
+        self._side = (torch.cuda.Stream(device) if device.type == "cuda"
+                      else None)
+        self._buffers: dict = {}
+
+    def mark(self):
+        """An event after the work queued so far on the current stream
+        (None on the CPU)."""
+        if self._side is None:
+            return None
+        event = torch.cuda.Event()
+        event.record()
+        return event
+
+    def fetch(self, ready, **tensors):
+        """numpy copies of ``tensors`` once ``ready`` (a :meth:`mark`) has
+        passed, in keyword order.  The arrays view the buffers named by
+        the keywords until the next fetch of the same name."""
+        if self._side is None:
+            return [t.numpy() for t in tensors.values()]
+        hosts = []
+        with torch.cuda.stream(self._side):
+            self._side.wait_event(ready)
+            for name, t in tensors.items():
+                host = self._buffers.setdefault(name, PinnedBuffer()).take(
+                    t.numel(), t.dtype).view(t.shape)
+                host.copy_(t, non_blocking=True)
+                hosts.append(host)
+            done = torch.cuda.Event()
+            done.record(self._side)
+        done.synchronize()
+        return [h.numpy() for h in hosts]
+
+
+def _pack(blocks, dcdiff, valid, spec, params: EncodeParams, budget: int):
+    """P1-P4 of one chunk at ``budget``: ``(stream int32, meta int64
+    [overflow, bits], lens int16)``, ``lens`` cut to the chunk's
+    ``valid`` blocks (all of them where it is None).  A block's bits fit
+    int16 (at most 64 items of at most 32 bits), which halves their
+    copy."""
+    stream, bits, lens, ovf = device_scan_pack(
+        blocks, spec, params.dc, params.ac, budget, dcdiff=dcdiff,
+        valid_blocks=valid)
+    n = blocks.shape[1] if valid is None else valid
+    return (stream, torch.cat([ovf.to(torch.int64), bits.view(1)]),
+            lens[:n].to(torch.int16))
+
+
+def pack_chunks(chunks, spec, params: EncodeParams,
+                stuffer: StreamingStuffer, ladder):
+    """Pack each chunk of one scan and yield the stuffer's non-empty
+    pieces, with a lookahead of one.
+
+    ``chunks`` yields ``(blocks, dcdiff, valid)`` per chunk, in scan order
+    (:func:`_pack`'s inputs); ``ladder`` is the list of budget rungs still
+    to try, climbed in place: a chunk that overflows is packed again at
+    the next rung, which later chunks start from, and the bytes already
+    yielded stay valid (packed bits do not depend on the budget).  The
+    top rung cannot overflow; if it did, RuntimeError."""
+    copier = HostCopy(params.dc.device)
+
+    def launch(inputs, budget):
+        outs = _pack(*inputs, spec, params, budget)
+        return inputs, budget, outs, copier.mark()
+
+    def resolve(entry):
+        inputs, budget, outs, ready = entry
+        while True:
+            meta, lens = copier.fetch(ready, meta=outs[1], lens=outs[2])
+            if not meta[0]:
+                break
+            if budget >= ladder[-1]:
+                raise RuntimeError("chunked pack overflow at the top rung")
+            while ladder[0] <= budget:
+                ladder.pop(0)
+            inputs, budget, outs, ready = launch(inputs, ladder[0])
+        bits = int(meta[1])
+        # Only the words the chunk used, not the budget's capacity.
+        (words,) = copier.fetch(ready, words=outs[0][:(bits + 31) >> 5])
+        return stuffer.add_chunk(words.view(np.uint32), bits, lens)
+
+    pending = None
+    for inputs in chunks:
+        entry = launch(inputs, ladder[0])
+        if pending is not None:
+            piece = resolve(pending)
+            if piece:
+                yield piece
+        pending = entry
+    if pending is not None:
+        piece = resolve(pending)
+        if piece:
+            yield piece
+    stuffer.finish()
+
+
+def iter_encode_interleaved_chunked(pixels, width: int, height: int,
+                                    color_type: ColorType,
+                                    config: EncoderConfig,
+                                    params: EncodeParams,
+                                    chunk_mcu_rows: int = 64, ladder=None):
+    """Bounded-memory interleaved scan encode, yielding final scan bytes
+    (stuffed, RST markers inline) as MCU-row bands complete.
+
+    ``pixels``: the whole array or a pull source (:func:`read_rows`);
+    ``params``: the encoder's quantizers and packed tables on its device,
+    where the chunks run; ``ladder``: the budget rungs to try, climbed in
+    place (default: all of ``BUDGET_LADDER``), so that the caller can read
+    the last rung from it.  Only the last chunk is partial."""
+    color_type = ColorType(color_type)
+    if config.mode() != "interleaved":
+        raise ValueError(f"the chunked interleaved path takes an interleaved "
+                         f"config, got {config.mode()}")
+    layout = scan_layout(width, height, color_type, config)
+    ((_, spec, _),) = build_scan_plan(layout, layout["components"], config)
+    pat = len(spec.dc_tab_pattern)
+    mcu_h = 8 * layout["max_v"]
+    num_rows = -(-height // mcu_h)
+    total_blocks = layout["mcu_count"] * pat
+    chunk_mcu_rows = min(chunk_mcu_rows, num_rows)
+    chunk_blocks = chunk_mcu_rows * (layout["mcu_count"] // num_rows) * pat
+    device = params.dc.device
+
+    def chunks():
+        prev_tail = torch.zeros(pat, dtype=torch.int32, device=device)
+        for ci in range(-(-num_rows // chunk_mcu_rows)):
+            y0 = ci * chunk_mcu_rows * mcu_h
+            n = min(chunk_mcu_rows * mcu_h, height - y0)
+            px = read_rows(pixels, y0, n, width, color_type, device)
+            (mcu,) = fn_cm(px, width, n, color_type, config,
+                           params.reciprocals, params.corrections)
+            dcdiff = dc_diffs_from_dc(mcu[0], spec, prev_tail=prev_tail,
+                                      global_offset=ci * chunk_blocks)
+            # From the input coefficients, so that a chunk packed again
+            # at a higher rung never changes the next chunk's input.
+            prev_tail = mcu[0, -pat:]
+            yield mcu, dcdiff, None
+
+    stuffer = StreamingStuffer(spec.seg_blocks or total_blocks, total_blocks)
+    yield from pack_chunks(chunks(), spec, params, stuffer,
+                           list(BUDGET_LADDER) if ladder is None else ladder)
+
+
+def encode_interleaved_chunked(pixels, width: int, height: int,
+                               color_type: ColorType, config: EncoderConfig,
+                               params: EncodeParams, chunk_mcu_rows: int = 64,
+                               ladder=None) -> bytes:
+    """The single scan's entropy bytes (stuffed, RST markers inline) of
+    :func:`iter_encode_interleaved_chunked`, joined."""
+    return b"".join(iter_encode_interleaved_chunked(
+        pixels, width, height, color_type, config, params, chunk_mcu_rows,
+        ladder))

@@ -1,0 +1,162 @@
+"""Bounded-memory device encode of the multi-pass modes.
+
+Counterpart of ``tpuenc/entropy/chunked_multipass.py``.  The reference
+encodes images of any size in every mode: sequential and progressive
+encodes materialize all quantized blocks once (encoder.rs:977-1056), then
+write scan by scan (encoder.rs:810-864, 869-975), and the optimized-table
+pass reads the same blocks (encoder.rs:1086-1200).  On the device that is:
+
+1. **Coefficients.**  MCU-row chunks run the whole-image pipeline
+   (``kernels.pipeline.fn_cm``) at the chunk's height and append each
+   component's blocks to a device store, int16 (64, B) coefficient-major
+   (128 bytes a block), padded to the component's pack chunk.  The
+   optimized-table modes count each chunk's symbols there too (K7,
+   ``entropy.device.scan_histograms``), summed on the device with no sync
+   per chunk; then the DC counts are corrected at the chunk boundaries and
+   the host builds the K.2 tables.
+2. **Pack.**  Each scan of the plan packs its store in chunks of
+   ``pack_chunk`` blocks (``chunked.pack_chunks``: P1-P4 with the DC
+   predecessor read from the store, the padding masked, lookahead one),
+   through a ``StreamingStuffer`` of its own.
+
+Transient device memory is O(chunk); the store is the image's blocks.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from ..core.types import ColorType, EncoderConfig
+from ..kernels.pipeline import fn_cm, scan_layout
+from .chunked import StreamingStuffer, pack_chunks, read_rows
+from .device import scan_histograms
+from .device_encode import (
+    BUDGET_LADDER,
+    EncodeParams,
+    build_scan_plan,
+    huffman_params,
+)
+from .huffopt import tables_from_histograms
+from .pallas_pack import dc_diffs_from_dc
+
+# Blocks per pack chunk: the pack's transients are about 1 KB a block, so
+# 1M blocks keeps them near 1 GB.
+PACK_CHUNK_BLOCKS = 1 << 20
+
+
+def _correct_dc_counts(hist: np.ndarray, stores, starts, components) -> None:
+    """Each chunk's DC histogram counted its first block of each component
+    against predecessor 0 (``scan_histograms`` sees one chunk); the
+    reference chains the differences over the whole component
+    (encoder.rs:1100-1117).  Move those blocks, one per later chunk and
+    component, to their true bins, read from the store."""
+    for c, comp in enumerate(components):
+        idx = torch.as_tensor([s[c] for s in starts],
+                              device=stores[c].device)
+        now = stores[c][0, idx].cpu().numpy().astype(np.int64)
+        prev = stores[c][0, idx - 1].cpu().numpy().astype(np.int64)
+        for v, p in zip(now.tolist(), prev.tolist()):
+            hist[comp.dc_huffman_table, 0, abs(v).bit_length()] -= 1
+            hist[comp.dc_huffman_table, 0, abs(v - p).bit_length()] += 1
+
+
+def encode_multipass_chunked(pixels, width: int, height: int,
+                             color_type: ColorType, config: EncoderConfig,
+                             huffman, params: EncodeParams,
+                             chunk_mcu_rows: int = 64,
+                             pack_chunk: int = PACK_CHUNK_BLOCKS,
+                             ladder=None) -> List[bytes]:
+    """Encode a sequential or progressive image of any size, default or
+    optimized tables, on the params' device with O(chunk) transient
+    memory.  Returns the per-scan entropy payloads (stuffed, RST markers
+    inline) in plan order.
+
+    ``pixels``: the whole array or a pull source (``chunked.read_rows``);
+    ``huffman``: the table list, replaced in place by the optimized
+    tables when the config asks for them (the caller writes its DHTs);
+    ``params``: the quantizers and default tables on the device;
+    ``chunk_mcu_rows`` / ``pack_chunk``: the coefficient and pack chunk
+    sizes (a component's pack chunk is never wider than the component,
+    rounded up to 256 blocks); ``ladder``: as
+    ``chunked.iter_encode_interleaved_chunked`` takes it."""
+    color_type = ColorType(color_type)
+    if config.mode() == "interleaved":
+        raise ValueError("the chunked multipass path takes a sequential or "
+                         "progressive config")
+    layout = scan_layout(width, height, color_type, config)
+    components = layout["components"]
+    counts = layout["comp_block_counts"]
+    plan = build_scan_plan(layout, components, config)
+    device = params.dc.device
+    mcu_h = 8 * layout["max_v"]
+    num_rows = -(-height // mcu_h)
+    ladder = list(BUDGET_LADDER) if ladder is None else ladder
+
+    # ----- Phase 1: coefficients (and symbol counts) into the store -----
+    pack_chunks_of = [min(pack_chunk, -(-b // 256) * 256) for b in counts]
+    stores = [torch.zeros((64, -(-b // pc) * pc), dtype=torch.int16,
+                          device=device)
+              for b, pc in zip(counts, pack_chunks_of)]
+    offsets = [0] * len(components)
+    starts = []  # each later chunk's first block index, per component
+    hist = None
+    chunk_mcu_rows = min(chunk_mcu_rows, num_rows)
+    for ci in range(-(-num_rows // chunk_mcu_rows)):
+        y0 = ci * chunk_mcu_rows * mcu_h
+        # Interior chunks are whole MCU rows; the last takes the rows left,
+        # which fn_cm pads and crops as the whole-image pipeline does.
+        n = min(chunk_mcu_rows * mcu_h, height - y0)
+        px = read_rows(pixels, y0, n, width, color_type, device)
+        streams = fn_cm(px, width, n, color_type, config, params.reciprocals,
+                        params.corrections)
+        if ci > 0:
+            starts.append(list(offsets))
+        for c, s in enumerate(streams):
+            stores[c][:, offsets[c]:offsets[c] + s.shape[1]] = s
+            offsets[c] += s.shape[1]
+        if config.optimize_huffman_table:
+            counted = scan_histograms(streams, components,
+                                      config.progressive_scans)
+            hist = counted if hist is None else hist + counted
+    if tuple(offsets) != tuple(counts):
+        raise RuntimeError(f"stored {offsets} blocks, want {counts}")
+
+    # ----- The K.2 tables from the summed counts -----
+    if config.optimize_huffman_table:
+        hist = hist.cpu().numpy()
+        if starts:
+            _correct_dc_counts(hist, stores, starts, components)
+        for i, pair in enumerate(tables_from_histograms(
+                [(h[0], h[1]) for h in hist])):
+            huffman[i] = list(pair)
+        dc, ac = huffman_params(huffman, device)
+        params = params._replace(dc=dc, ac=ac)
+
+    # ----- Phase 2: every scan packed in chunks of its store -----
+    payloads = []
+    for stream_idx, spec, _ in plan:
+        B = counts[stream_idx]
+        store = stores[stream_idx]
+        cb = pack_chunks_of[stream_idx]
+
+        def chunks(store=store, spec=spec, B=B, cb=cb):
+            for b0 in range(0, B, cb):
+                blocks = store[:, b0:b0 + cb]
+                if spec.emit_dc:
+                    # The previous block of the component: the store column
+                    # before the chunk (reset by the segment logic at 0).
+                    p = max(b0 - 1, 0)
+                    dcdiff = dc_diffs_from_dc(blocks[0], spec,
+                                              prev_tail=store[0, p:p + 1],
+                                              global_offset=b0)
+                else:
+                    dcdiff = torch.zeros(cb, dtype=torch.int32, device=device)
+                yield blocks, dcdiff, min(cb, B - b0)
+
+        stuffer = StreamingStuffer(spec.seg_blocks or B, B)
+        payloads.append(b"".join(pack_chunks(chunks(), spec, params, stuffer,
+                                             ladder)))
+    return payloads

@@ -476,13 +476,17 @@ class PinnedBuffer:
     def __init__(self):
         self._buf = None
 
-    def words(self, n_words: int) -> torch.Tensor:
-        """The first ``n_words`` int32 words of the buffer."""
-        nbytes = 4 * n_words
+    def take(self, n: int, dtype: torch.dtype) -> torch.Tensor:
+        """The buffer's first ``n`` elements of ``dtype``."""
+        nbytes = n * torch.empty((), dtype=dtype).element_size()
         if self._buf is None or self._buf.numel() < nbytes:
             size = 1 << max(0, nbytes - 1).bit_length()
             self._buf = torch.empty(size, dtype=torch.uint8, pin_memory=True)
-        return self._buf[:nbytes].view(torch.int32)
+        return self._buf[:nbytes].view(dtype)
+
+    def words(self, n_words: int) -> torch.Tensor:
+        """The first ``n_words`` int32 words of the buffer."""
+        return self.take(n_words, torch.int32)
 
 
 def device_encode_batch_single(images, width: int, height: int,

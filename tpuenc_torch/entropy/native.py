@@ -1,11 +1,13 @@
 """ctypes binding to the repository's native entropy library.
 
-Counterpart of ``tpuenc/entropy/native.py``.  The port needs two
+Counterpart of ``tpuenc/entropy/native.py``.  The port needs three
 functions of ``native/entropy.cpp`` on its path: ``tpuenc_realign_segments``,
 which turns the device's bit-granular scan stream into finished scan bytes
 (per restart segment: shift to a byte boundary, 1-pad the tail,
-0xFF-stuff, insert RST markers), and ``tpuenc_build_k2``, the Annex K.2
-table build of the two-pass optimized-table mode.
+0xFF-stuff, insert RST markers), ``tpuenc_stuff_stream``, the bulk
+mid-segment flush of the chunked paths' ``StreamingStuffer``, and
+``tpuenc_build_k2``, the Annex K.2 table build of the two-pass
+optimized-table mode.
 
 The library is built with g++ from the unchanged ``native/entropy.cpp``
 into the port's own build directory (``tpuenc_torch/_build``), under a
@@ -74,6 +76,16 @@ def _load():
             ctypes.c_longlong, # out capacity
             ctypes.c_int,      # skip_first (segment 0 = offset, not emitted)
         ]
+        lib.tpuenc_stuff_stream.restype = ctypes.c_longlong
+        lib.tpuenc_stuff_stream.argtypes = [
+            ctypes.c_void_p,   # in bytes (bit-granular stream)
+            ctypes.c_longlong, # in_len
+            ctypes.c_longlong, # bit_off
+            ctypes.c_longlong, # nbytes
+            ctypes.c_int,      # num_threads
+            ctypes.c_void_p,   # out
+            ctypes.c_longlong, # out capacity
+        ]
         lib.tpuenc_build_k2.restype = ctypes.c_int32
         lib.tpuenc_build_k2.argtypes = [
             ctypes.c_void_p,   # freq int64 (257,)
@@ -111,6 +123,35 @@ def realign_segments(data: bytes, seg_bits, bit_offset: int = 0) -> bytes:
     )
     if n < 0:
         raise RuntimeError(f"tpuenc_realign_segments failed ({n})")
+    return out[:n].tobytes()
+
+
+def stuff_stream(data, bit_off: int, nbytes: int) -> bytes:
+    """Output bytes [bit_off, bit_off + 8*nbytes) of the raw bit stream
+    ``data`` (a bytes-like buffer, MSB first), 0xFF-stuffed: no padding,
+    no markers.  The chunked paths' bulk mid-segment flush, chunk-parallel
+    in native code.  Raises ValueError for a range outside ``data`` and
+    RuntimeError if the native call fails (``tpuenc``'s binding returns
+    None there)."""
+    lib = _load()
+    buf = np.frombuffer(memoryview(data), dtype=np.uint8)
+    bit_off, nbytes = int(bit_off), int(nbytes)
+    if bit_off < 0 or nbytes < 0 or bit_off + 8 * nbytes > 8 * buf.size:
+        raise ValueError(f"bits [{bit_off}, {bit_off + 8 * nbytes}) outside "
+                         f"a {buf.size}-byte buffer")
+    cap = 2 * nbytes + 16
+    out = np.empty(cap, dtype=np.uint8)
+    n = lib.tpuenc_stuff_stream(
+        buf.ctypes.data_as(ctypes.c_void_p),
+        buf.size,
+        bit_off,
+        nbytes,
+        os.cpu_count() or 1,
+        out.ctypes.data_as(ctypes.c_void_p),
+        cap,
+    )
+    if n < 0:
+        raise RuntimeError(f"tpuenc_stuff_stream failed ({n})")
     return out[:n].tobytes()
 
 

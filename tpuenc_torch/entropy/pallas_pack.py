@@ -20,6 +20,10 @@ realigns, pads and stuffs each restart segment):
 * P4, :func:`concat_rows` (K5): the rows placed at their bit offsets in
   one stream.
 
+:func:`device_scan_pack` runs P1-P4 of one scan or of one chunk of it, the
+chunk's DC chain continued from the blocks before it
+(:func:`dc_diffs_from_dc`'s mid-stream form) and its padding masked.
+
 Every stage keeps the TPU version's capacities (:func:`block_caps`,
 :func:`chunk_caps`, :func:`fold_caps`) and sets its overflow flag exactly
 where the TPU kernel sets its own, so the budget ladder learns the same
@@ -345,10 +349,16 @@ def pack_blocks(q, dcdiff, dc_tab, ac_tab, spec: ScanSpec, Bp: int,
 pack_blocks.launches = 0
 
 
-def dc_diffs_from_dc(dc, spec: ScanSpec):
+def dc_diffs_from_dc(dc, spec: ScanSpec, prev_tail=None, global_offset=None):
     """(B,) int32 DC differences from the (B,) DC row: each block minus the
     previous block of the same component, reset to 0 at every restart
-    segment start (reference encoder.rs:748-757)."""
+    segment start (reference encoder.rs:748-757).
+
+    Mid-stream form (a chunk of a longer stream): ``prev_tail`` holds the
+    DC values of the ``len(spec.dc_tab_pattern)`` blocks just before the
+    chunk, and ``global_offset`` (an int, a multiple of the pattern
+    length) is the chunk's first block index in the whole stream, which
+    fixes the restart segments and so the predictor resets."""
     B = dc.shape[0]
     dev = dc.device
     dc = dc.to(torch.int32)
@@ -360,20 +370,31 @@ def dc_diffs_from_dc(dc, spec: ScanSpec):
     for p in range(1, pat):
         delta = torch.where(pos == p, int(spec.dc_prev_delta[p]), delta)
     prev = torch.zeros_like(dc)
+    if prev_tail is None:
+        for d in sorted(set(spec.dc_prev_delta)):
+            prev = torch.where(delta == d, torch.roll(dc, d), prev)
+        seg = spec.seg_blocks if spec.seg_blocks > 0 else B
+        prev = torch.where((bidx % seg) >= delta, prev, 0)
+        return dc - prev
+    # Mid-stream: the predecessors of the first blocks lie in the tail.
+    ext = torch.cat([prev_tail.to(torch.int32), dc])
     for d in sorted(set(spec.dc_prev_delta)):
-        prev = torch.where(delta == d, torch.roll(dc, d), prev)
-    seg = spec.seg_blocks if spec.seg_blocks > 0 else B
-    prev = torch.where((bidx % seg) >= delta, prev, 0)
-    return dc - prev
+        prev = torch.where(delta == d, ext[pat - d:pat - d + B], prev)
+    gidx = bidx + int(global_offset)
+    if spec.seg_blocks > 0:
+        gidx = gidx % spec.seg_blocks
+    return dc - torch.where(gidx >= delta, prev, 0)
 
 
 def scan_pack_blocks(blocks, spec: ScanSpec, dc_packed, ac_packed,
-                     budget: int, *, tile: int = 512):
+                     budget: int, *, tile: int = 512, dcdiff=None):
     """P1 of one scan: int16 (64, B) coefficient-major blocks -> (words
     int32 (Bp, capB), lens int32 (Bp,), overflow int32 (1,)), with Bp = B
     rounded up to ``tile`` and padding blocks of length 0.  Block-level
     caps take ``max(budget, 16)``: they must hold the busiest single
-    block however small the aggregate budget is."""
+    block however small the aggregate budget is.  ``dcdiff``: the (B,)
+    int32 DC differences when the caller computed them (a chunk of a
+    longer stream, :func:`dc_diffs_from_dc`'s mid-stream form)."""
     B = blocks.shape[1]
     Bp = -(-B // tile) * tile
     if spec.emit_ac and not spec.emit_dc and \
@@ -382,7 +403,8 @@ def scan_pack_blocks(blocks, spec: ScanSpec, dc_packed, ac_packed,
         # (encoder.rs:926-936): no symbols and not even an EOB
         # (writer.rs:364-384), so every block is 0 bits.
         return _zero_strings(Bp, blocks.device)
-    dcdiff = dc_diffs_from_dc(blocks[0], spec)
+    if dcdiff is None:
+        dcdiff = dc_diffs_from_dc(blocks[0], spec)
     return pack_blocks(blocks.contiguous(), dcdiff, dc_packed, ac_packed, spec,
                        Bp, max(budget, 16))
 
@@ -395,16 +417,20 @@ def _zero_strings(Bp: int, device):
             torch.zeros(1, dtype=torch.int32, device=device))
 
 
-def dc_only_pack_blocks(blocks, spec: ScanSpec, dc_packed, tile: int = 512):
+def dc_only_pack_blocks(blocks, spec: ScanSpec, dc_packed, tile: int = 512,
+                        dcdiff=None):
     """P1 of a DC-only scan (the progressive DC passes): one item of at
     most 27 bits per block, so one word per block.  Plain PyTorch, as it
     is XLA in ``tpuenc`` (``pallas_pack._dc_only_pack_blocks``).  Returns
     ``(words int32 (Bp, 1), lens int32 (Bp,), overflow int32 (1,))`` with
-    Bp = B rounded up to ``tile``; the flag is always 0."""
+    Bp = B rounded up to ``tile``; the flag is always 0.  ``dcdiff`` as
+    :func:`scan_pack_blocks` takes it."""
     dev = blocks.device
     B = blocks.shape[1]
     Bp = -(-B // tile) * tile
-    diff = dc_diffs_from_dc(blocks[0], spec).to(torch.int64)
+    if dcdiff is None:
+        dcdiff = dc_diffs_from_dc(blocks[0], spec)
+    diff = dcdiff.to(torch.int64)
     size = _bit_length(diff.abs())
     pat = spec.dc_tab_pattern
     if len(set(pat)) == 1:
@@ -859,3 +885,30 @@ def merge_pack_stream(words, lens, budget: int, *, n_sub: int = 128,
     capW = -(-(R * cap_out + cap_out + 256) // 128) * 128
     stream = concat_rows(rows, pos, row_bits, capW)
     return stream, incl[-1], ovf
+
+
+def device_scan_pack(blocks, spec: ScanSpec, dc_packed, ac_packed,
+                     budget: int, *, dcdiff=None, valid_blocks=None):
+    """P1-P4 of one scan or one chunk of it (``tpuenc``'s
+    ``device_scan_pack``): int16 (64, B) blocks -> ``(stream int32 (capW,),
+    total_bits int64 (), lens int32 (Bp,), overflow int32 (1,))``.  P1 is
+    the DC path for a DC-only scan, else K2 (:func:`scan_pack_blocks`);
+    then :func:`merge_pack_stream`.
+
+    Mid-stream form: ``dcdiff`` supplies the chunk's DC differences
+    (:func:`dc_diffs_from_dc` with ``prev_tail`` and ``global_offset``),
+    and ``valid_blocks`` (an int) zeroes the strings of the blocks at and
+    past it, the padding of a chunk cut from a padded store, so that they
+    add no bits."""
+    if spec.emit_dc and not spec.emit_ac:
+        words, lens, ovf1 = dc_only_pack_blocks(blocks, spec, dc_packed,
+                                                dcdiff=dcdiff)
+    else:
+        words, lens, ovf1 = scan_pack_blocks(blocks, spec, dc_packed,
+                                             ac_packed, budget, dcdiff=dcdiff)
+    if valid_blocks is not None:
+        valid = torch.arange(words.shape[0], device=words.device) < valid_blocks
+        lens = torch.where(valid, lens, 0)
+        words = torch.where(valid[:, None], words, 0)
+    stream, total_bits, ovf2 = merge_pack_stream(words, lens, budget)
+    return stream, total_bits, lens, ovf1 | ovf2
