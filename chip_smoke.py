@@ -8,8 +8,7 @@ Phases, each printing its own lines and its wall seconds:
    no CUDA device is an error;
 2. build the CUDA kernels from ``tpuenc_torch/csrc`` (one nvcc per source,
    all started together) and time the build; beside it, ``nvcc -Xptxas -v``
-   reports the registers, stack, spills and static shared memory of K1, K2,
-   K3/K4, K5, K6, K7 and K8;
+   reports the registers, stack, spills and static shared memory of K1-K9;
 3. each kernel (K1-K9) against its plain PyTorch version on the same CUDA
    tensors, at the flagship's shapes (2000x1800 RGB, 56,250 blocks per
    component): K1 on the luma plane; K2 on the interleaved stream at block
@@ -25,8 +24,8 @@ Phases, each printing its own lines and its wall seconds:
    and the plain version's, both timed the same way (CUDA events around
    the call with the card idle, so the wrapper's host time is in it), the
    kernel's device time (its call queued behind a spin; see ``cuda_ms``),
-   the K2-K4 lines also with their first designs' times and the K5-K8
-   lines with the device times of the designs they replaced, from
+   the K2-K4 lines also with their first designs' times and the K1 and
+   K5-K9 lines with the device times of the designs they replaced, from
    PERF.md, and the kernel's bound: the bytes it must move (each input
    read once, each output written once; bit strings read only up to their
    lengths) over the H100's 3.35 TB/s, with its share of the device time;
@@ -216,15 +215,15 @@ def phase_env():
 
 PTXAS_REPORTED = ("fdct_quantize.cu", "pack_blocks.cu", "merge_rows.cu",
                   "concat_rows.cu", "pack_acbands.cu", "hist_count.cu",
-                  "fused_sample_pack.cu")
+                  "fused_sample_pack.cu", "hist_sym.cu")
 
 
 def phase_build():
     """The library build, and beside it one ``-Xptxas -v`` compile of each
-    of K1, K2, K3/K4, K5, K6, K7 and K8 for their registers, stack, spills
-    and static shared memory (K2's, K6's and K8's tiles and K3/K4's prefix
-    are dynamic shared memory, sized at launch, which ptxas does not see;
-    phase 3 prints K6's and K8's)."""
+    of K1-K9 for their registers, stack, spills and static shared memory
+    (K2's, K6's, K8's and K9's tiles and K3/K4's prefix are dynamic shared
+    memory, sized at launch, which ptxas does not see; phase 3 prints K6's
+    and K8's)."""
     import tempfile
 
     from tpuenc_torch import cuda_lib
@@ -275,11 +274,17 @@ PR4_MS = {
 
 # Device ms of the designs K5 (one thread block per row, atomicOr into a
 # zero-filled output), K6 and K8 (a serial bit writer storing each block's
-# row to device memory; K6 walking the slots once per band) and K7 (a walk
-# per band, a shared atomic per symbol) replaced, from PERF.md section 6:
-# the measure of phase 3's device time (``cuda_ms`` queued), NVIDIA H100
-# 80GB HBM3 at 700 W.
+# row to device memory; K6 walking the slots once per band), K7 (a walk
+# per band, a shared atomic per symbol), K1 and K9 (one thread per block,
+# K1 with its 64 samples in registers, K9 over all 64 slots with 1-byte
+# stores) replaced, from PERF.md section 6: the measure of phase 3's device
+# time (``cuda_ms`` queued), NVIDIA H100 80GB HBM3 at 700 W (K1 and K9: the
+# mean of the replaced design's two turns of ``kernel_ab.py``).
 REPLACED_DEVICE_MS = {
+    "K1 fdct_quantize": "0.0131",
+    "K1 fdct_quantize batch (a)": "0.0687",
+    "K1 fdct_quantize batch (b)": "0.0117",
+    "K1 fdct_quantize config 5 chunk": "0.0434",
     "K5 concat_rows rung 5": "0.0140",
     "K5 concat_rows rung 16": "0.0170",
     "K6 pack_acbands budget 16": "0.0681",
@@ -288,6 +293,7 @@ REPLACED_DEVICE_MS = {
     "K8 fused_sample_pack budget 16": "0.0839",
     "K8 fused_sample_pack budget 48": "0.1901",
     "K8 fused_sample_pack 4K 4:2:0 restart 64 budget 16": "0.0982",
+    "K9 hist_sym": "0.0124",
 }
 
 
@@ -359,6 +365,46 @@ def p1_merge_cases(params, spec, stream, dcdiff, Bp):
             string_bytes(row_bits) + nbytes(row_bits)
 
 
+def k1_case(key, x_cm, params):
+    """A K1 case on the luma table: ``(key, kernel, plain, read_bytes)``
+    for ``x_cm`` int32 (64, B), as phase 3, 8 and 9 and ``kernel_ab.py``
+    time it."""
+    from tpuenc_torch.kernels import pallas_fdct
+
+    r, c = params.reciprocals[0], params.corrections[0]
+    return key, lambda: pallas_fdct.fdct_quantize(x_cm, r, c), \
+        lambda: pallas_fdct.fdct_quantize_ref(x_cm, r, c), nbytes(x_cm, r, c)
+
+
+def flagship_luma(px):
+    """The flagship's luma plane as K1's (64, 56,250) input, as fn_cm
+    launches it."""
+    from tpuenc_torch.core.types import ColorType
+    from tpuenc_torch.kernels import pipeline
+    from tpuenc_torch.kernels.color_convert import to_planes
+
+    return pipeline._blockify_cm(to_planes(px, ColorType.RGB)[0], 1, 1)
+
+
+def batch_luma(enc, px, w, h):
+    """The single program's K1 input for the batch's luma blocks."""
+    from tpuenc_torch import ColorType
+    from tpuenc_torch.kernels import pipeline
+
+    return pipeline._sample_streams(px, w, h, ColorType.RGB, enc._config(),
+                                    batched=True)[3][0]
+
+
+def config5_chunk_y(dev, rows_px):
+    """K1's input for the Y blocks of one config-5 chunk (64 MCU rows)."""
+    from tpuenc_torch import ColorType
+    from tpuenc_torch.kernels import pipeline
+
+    h = rows_px.shape[0]
+    return pipeline._sample_streams(rows_px, CONFIG5, h, ColorType.CMYK_AS_YCCK,
+                                    config5_encoder(dev)._config())[3][0]
+
+
 # Blocks a K6 thread block packs (kRows in csrc/pack_acbands.cu).
 K6_ROWS = 64
 
@@ -379,10 +425,10 @@ def progressive_luma(dev, params, px):
 
 
 def acband_hist_cases(params, luma, Bp, bands):
-    """Phase 3's K6 and K7 cases on the progressive luma stream: yields
+    """Phase 3's K6, K7 and K9 cases on the progressive luma stream: yields
     ``(key, kernel, plain, read_bytes)``.  K6 at block budgets 16 (the
     flagship's), 48 and 224 (a tile past the default 48 KB of shared
-    memory); K7 on the same bands."""
+    memory); K7 on the same bands; K9 on the band (1, 64), Lp = Bp."""
     from tpuenc_torch.entropy import pallas_hist as ph
     from tpuenc_torch.entropy import pallas_pack as pk
 
@@ -394,6 +440,8 @@ def acband_hist_cases(params, luma, Bp, bands):
             nbytes(luma, params.ac[0])
     yield "K7 hist_count", lambda: ph.hist_count(luma, bands), \
         lambda: ph.hist_count_ref(luma, bands), nbytes(luma)
+    yield "K9 hist_sym", lambda: ph.hist_sym(luma, 1, 64, Bp), \
+        lambda: ph.hist_sym_ref(luma, 1, 64, Bp), nbytes(luma)
 
 
 def uhd_inputs(dev):
@@ -552,11 +600,7 @@ def check_kernel(results, key, kernel, plain, read_bytes, reps=10):
 
 def phase_kernels(dev):
     """Each kernel against its plain version on the flagship's tensors."""
-    from tpuenc_torch.core.types import ColorType
-    from tpuenc_torch.entropy import pallas_hist as ph
     from tpuenc_torch.entropy import pallas_pack as pk
-    from tpuenc_torch.kernels import pallas_fdct, pipeline
-    from tpuenc_torch.kernels.color_convert import to_planes
 
     params, spec, stream, dcdiff, Bp, px, layout, config = flagship_inputs(dev)
     results = {}
@@ -571,13 +615,7 @@ def phase_kernels(dev):
         print(f"  {key}: equal to K1 -> DC differences -> K2")
 
     # K1 on the luma plane's (64, 56,250) blocks, as fn_cm launches it.
-    y = to_planes(px, ColorType.RGB)[0]
-    x_cm = pipeline._blockify_cm(y, 1, 1)
-    r, c = params.reciprocals[0], params.corrections[0]
-    check("K1 fdct_quantize",
-          lambda: pallas_fdct.fdct_quantize(x_cm, r, c),
-          lambda: pallas_fdct.fdct_quantize_ref(x_cm, r, c),
-          nbytes(x_cm, r, c))
+    check(*k1_case("K1 fdct_quantize", flagship_luma(px), params))
 
     print(f"  flagship stream: {stream.shape[1]} blocks, padded to {Bp}")
     strings = {}
@@ -621,8 +659,6 @@ def phase_kernels(dev):
                   f"dynamic shared memory {smem} bytes (AC table, 64 x "
                   f"{K6_ROWS} coefficients, tile {len(bands)} x {K6_ROWS} x "
                   f"{cap_f} words)")
-    check("K9 hist_sym", lambda: ph.hist_sym(luma, 1, 64, Bp),
-          lambda: ph.hist_sym_ref(luma, 1, 64, Bp), nbytes(luma))
     return results
 
 
@@ -1165,19 +1201,11 @@ def batch_kernel_checks(dev, enc, imgs, w, h, results, label):
     """The single program's kernels at the batch's shapes against their
     plain versions (tolerance 0): K1 on the batch's luma blocks, then K2,
     K3, K4 (where the plan folds) and K5 at the route's rung."""
-    from tpuenc_torch import ColorType
-    from tpuenc_torch.kernels import pallas_fdct, pipeline
-
     px, params, spec, _, stream = batch_stream(dev, enc, imgs, w, h)
-    luma = pipeline._sample_streams(px, w, h, ColorType.RGB, enc._config(),
-                                    batched=True)[3][0]
-    r, c = params.reciprocals[0], params.corrections[0]
+    luma = batch_luma(enc, px, w, h)
     print(f"  kernels at the batch's shapes: luma {luma.shape[1]} blocks, "
           f"stream {stream.shape[1]} blocks, rung {enc.last_budget}")
-    check_kernel(results, f"K1 fdct_quantize {label}",
-                 lambda: pallas_fdct.fdct_quantize(luma, r, c),
-                 lambda: pallas_fdct.fdct_quantize_ref(luma, r, c),
-                 nbytes(luma, r, c))
+    check_kernel(results, *k1_case(f"K1 fdct_quantize {label}", luma, params))
     for case in pack_merge_cases(params, spec, stream, enc.last_budget, label):
         check_kernel(results, *case)
 
@@ -1818,7 +1846,7 @@ def config5_kernel_checks(dev, img, rung, rung_d):
     from tpuenc_torch.entropy import device_encode as de
     from tpuenc_torch.entropy import pallas_hist as ph
     from tpuenc_torch.entropy import pallas_pack as pk
-    from tpuenc_torch.kernels import pallas_fdct, pipeline
+    from tpuenc_torch.kernels import pipeline
 
     ct = ColorType.CMYK_AS_YCCK
     w = CONFIG5
@@ -1830,13 +1858,10 @@ def config5_kernel_checks(dev, img, rung, rung_d):
     px0 = torch.from_numpy(img[:rows]).to(dev)
     px1 = torch.from_numpy(img[rows:2 * rows]).to(dev)
 
-    y = pipeline._sample_streams(px1, w, rows, ct, config)[3][0]
-    r, c = params.reciprocals[0], params.corrections[0]
+    y = config5_chunk_y(dev, px1)
     print(f"  (g) K1 on a chunk's Y blocks: {y.shape[1]}")
-    check_kernel(results, "K1 fdct_quantize config 5 chunk",
-                 lambda: pallas_fdct.fdct_quantize(y, r, c),
-                 lambda: pallas_fdct.fdct_quantize_ref(y, r, c),
-                 nbytes(y, r, c), reps=5)
+    check_kernel(results, *k1_case("K1 fdct_quantize config 5 chunk", y,
+                                   params), reps=5)
     del y
 
     # Chunk 1's MCU stream, its DC chain continued from chunk 0's last MCU,

@@ -63,6 +63,26 @@ def test_k1_matches_plain(dev, quality):
     assert tfdct.fdct_quantize.launches == n + 2
 
 
+@pytest.mark.parametrize("B", [1, 31, 32, 33, 4097, 56250])
+def test_k1_edge_widths_write_every_word(dev, B):
+    """K1 at widths that leave its tiles of 32 blocks ragged (and B % 4 !=
+    0): its output lands on a block the allocator holds dirty, and still
+    equals the plain version."""
+    rng = np.random.default_rng(B)
+    x = torch.from_numpy(rng.integers(-128, 128, (64, B)).astype(np.int32)).to(dev)
+    p = _params(dev, 75)
+    r, c = p.reciprocals[0], p.corrections[0]
+    want = tfdct.fdct_quantize_ref(x, r, c)
+    torch.cuda.synchronize()
+    dirty = torch.full((64, B), -1, dtype=torch.int16, device=dev)
+    ptr = dirty.data_ptr()
+    del dirty
+    got = tfdct.fdct_quantize(x, r, c)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == ptr
+    assert torch.equal(got, want)
+
+
 def _spec(pattern, tabs, seg, ss=1, se=64, emit_dc=True):
     t = tuple(tabs[c] for c in pattern)
     return ScanSpec(ss, se, emit_dc, True, t, t, _dc_prev_delta(pattern), seg)
@@ -457,6 +477,30 @@ def test_k9_matches_plain(dev, band):
         assert torch.equal(g, w)
     hist = th.ac_histogram_sym(q, *band)
     assert torch.equal(hist, th.ac_histograms_multiband(q, [band])[0])
+
+
+@pytest.mark.parametrize("band", [(1, 64), (6, 40), (63, 64), (0, 64)])
+@pytest.mark.parametrize("lp", ["n", "x512", "n+3"])
+@pytest.mark.parametrize("n_blocks", [1, 511, 513, 514])
+def test_k9_shapes_match_plain(dev, n_blocks, lp, band):
+    """K9 at odd widths (its 2-byte load path) and an even one (staged,
+    n_blocks % 4 == 2 as at the flagship), at Lp a multiple of 512 (4-byte
+    stores) or not, and at bands from slot 0 and of one slot; the outputs
+    reuse blocks the allocator holds from a call on other data."""
+    from tpuenc_torch.entropy import pallas_hist as th
+
+    Lp = {"n": n_blocks, "x512": -(-n_blocks // 512) * 512,
+          "n+3": n_blocks + 3}[lp]
+    q = _blocks(max(n_blocks, 16), n_blocks + band[0], extremes=True)
+    q = torch.from_numpy(np.ascontiguousarray(q[:, :n_blocks])).to(dev)
+    dense = torch.from_numpy(
+        np.random.default_rng(3).integers(-300, 300, (64, n_blocks))
+        .astype(np.int16)).to(dev)
+    th.hist_sym(dense, 0, 64, Lp)
+    got = th.hist_sym(q, *band, Lp)
+    torch.cuda.synchronize()
+    for g, w in zip(got, th.hist_sym_ref(q, *band, Lp)):
+        assert torch.equal(g, w)
 
 
 # K8: (block component pattern, quantizer per component, table ids per

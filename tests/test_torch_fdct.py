@@ -60,6 +60,20 @@ def test_k1_plain_matches_pallas_and_xla(preset, quality, luma):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("B", [1, 33, 513])
+def test_k1_plain_matches_pallas_at_edge_widths(B):
+    """The K1 plain version equals the Pallas kernel (interpret mode) at the
+    widths the card kernel's tiles of 32 blocks leave ragged: one block, a
+    tile and one, and a width with B % 4 != 0."""
+    x = _samples(B, B)
+    tab = quantization_table("default", 90, True)
+    want = np.asarray(fdct_quantize_pallas_cm(jnp.asarray(x), tab))
+    got = tfdct.fdct_quantize_pallas_cm(
+        torch.from_numpy(x), ttables.quantization_table("default", 90, True))
+    assert got.shape == (64, B)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_fdct_blocks_and_quantize_match():
     """The block-major plain twins (kernels/fdct.py, kernels/quantize.py)."""
     from tpuenc_torch.kernels.fdct import fdct_blocks as tfdct_blocks

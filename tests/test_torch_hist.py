@@ -107,6 +107,15 @@ def test_k9_matches_pallas(band):
         thist.ac_histogram_sym(torch.from_numpy(q), ss, se).numpy(), want)
 
 
+@pytest.mark.parametrize("ss,se,Lp", [(1, 64, 39), (5, 5, 40), (10, 3, 40),
+                                      (-1, 64, 40), (1, 65, 40)])
+def test_k9_rejects_bad_band_or_width(ss, se, Lp):
+    """hist_sym raises ValueError, on CPU tensors too, for fewer output
+    columns than blocks and for an empty or out-of-range band."""
+    with pytest.raises(ValueError):
+        thist.hist_sym(torch.from_numpy(_stream(40, 2)), ss, se, Lp)
+
+
 @pytest.mark.parametrize("bands", [((1, 22), (21, 43)),
                                    ((1, 22), (22, 43), (1, 22)),
                                    ((5, 10), (1, 64))], ids=str)
