@@ -33,7 +33,9 @@ Phases, each printing its own lines and its wall seconds:
 5. the interleaved flagship, ``Encoder(90, device="cuda").encode(rgb,
    2000, 1800, ColorType.RGB)``: the same bytes as the CPU path, K1-K5
    launched, the budget rung, warm end-to-end MP/s (median of 7) and
-   per-stage times;
+   per-stage times, the host finish in its three steps (a) the pageable
+   D2H of the stream, (b) big-endian bytes per scan, (c) the native
+   realigner per scan (host clock, median of 5; also in phases 6 and 7);
 6. the same image and encoder switched to progressive scans with two-pass
    optimized tables (``set_progressive(True)``,
    ``set_optimized_huffman_tables(True)``): the same bytes as the CPU path
@@ -83,7 +85,21 @@ Phases, each printing its own lines and its wall seconds:
    CUDA tensors, (c)'s bytes with no pixel copy to the card; (g) K1, K2
    (mid-stream DC chain), K3, K4 where it folds, K5, K2 on a masked
    1,048,576-block pack chunk and K7 at the path's shapes against their
-   plain versions, as phase 3.
+   plain versions, as phase 3;
+10. the device finish (``entropy.device_stuff``), which the whole-image
+   routes run, beside the host finish it replaced, on the three flagship
+   routes (split, fused, progressive + optimized): on each route's stream
+   from phases 5-7, the host finish's steps (a)-(c) beside the device
+   finish's parts (the device ms of pass 1 and of both passes, the read of
+   the final segment byte counts, the page-locked copy of the finished
+   bytes, the split into scans, the whole finish, its peak memory); one
+   encode on "device-v2" / "device-v2-fused" with the launch counts at 0
+   just before it, its bytes and rung (budget memo cleared) equal to the
+   host finish's; warm end to end in turns (host, device, device, host);
+   the 26 fixtures, split and fused, each file and rung equal to the host
+   finish's and to the frozen file; and the largest whole-image encode,
+   13824x13824 RGB (the flagship tiled) at q90, with the finish's peak
+   device memory held to its bound.
 
 It prints a JSON line of the kernels (with every shape each was checked
 at), the card's name and power limit, and last ``{"ok": true, "device":
@@ -169,6 +185,9 @@ def cuda_ms(fn, reps=10, queued=False):
         b.synchronize()
         if queued and host_ms > 0.5 * s.elapsed_time(a):
             spin *= 2  # the card may have caught up with the host
+            if spin > SPIN_CYCLES << 10:
+                raise RuntimeError("a queued timing waited on the card: "
+                                   "the timed function synchronises")
             continue
         times.append(a.elapsed_time(b))
     return statistics.median(times)
@@ -680,7 +699,9 @@ def phase_fixtures(dev):
 def stage_times(dev, rgb, budget, fused=False):
     """Device ms of each stage of one interleaved flagship encode, split
     (K1 x3, K2) or ``fused`` (K8) (CUDA events, median of 10), and the
-    host finish in ms (host clock)."""
+    host finish's three steps in ms (:func:`host_finish_parts`).  Returns
+    the finish's inputs, (stream words, meta, meta on the host, scans,
+    segments per scan)."""
     from tpuenc_torch import Encoder
     from tpuenc_torch.core.tables import default_tables, quantization_table
     from tpuenc_torch.core.types import ColorType
@@ -730,15 +751,177 @@ def stage_times(dev, rgb, budget, fused=False):
         lambda: pk.merge_pack_stream(words, lens, budget))
     st["pack + meta (P1-P4, seg bits)"] = cuda_ms(pack)
     buf, meta = pack()
-    meta_np = meta.cpu().numpy()
-    times = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        de._finish_scans_v2(buf, meta_np, 1, [1])
-        times.append((time.perf_counter() - t0) * 1e3)
-    st["host: d2h stream + realign/stuff (host clock)"] = statistics.median(times)
+    finish = (buf, meta, meta.cpu().numpy(), 1, [1])
+    st.update(host_finish_parts(*finish)[0])
     for k, v in st.items():
         print(f"  {k:50s} {v:9.4f} ms")
+    return finish
+
+
+def host_median(fn, reps=5):
+    """Median host-clock seconds of ``reps`` warm calls of ``fn``, each
+    ended by a synchronise, and the runs."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), times
+
+
+def host_finish_parts(buf, meta, meta_np, n_scans, seg_structure):
+    """The host finish (``device_encode._finish_scans_v2``) in its three
+    steps, each summed over the scans, on the host clock, median of 5
+    warm runs: (a) the pageable copy of the stream's used words, (b) each
+    scan's words to big-endian bytes, (c) ``native.realign_segments`` per
+    scan (``os.cpu_count()`` threads, started per call).  Checks that the
+    steps give ``_finish_scans_v2``'s bytes; returns ({step: ms}, the
+    scans' bytes)."""
+    from tpuenc_torch.entropy import device_encode as de
+    from tpuenc_torch.entropy import native
+
+    scan_bits = meta_np[1:1 + n_scans]
+    seg_bits = meta_np[1 + n_scans:].astype(np.int64)
+    total_words = (int(scan_bits.sum()) + 31) >> 5
+    runs = {"a": [], "b": [], "c": []}
+    for _ in range(6):
+        t0 = time.perf_counter()
+        w = buf[:total_words].cpu().numpy().view(np.uint32)
+        runs["a"].append(time.perf_counter() - t0)
+        scans, tb, tc = [], 0.0, 0.0
+        bit_off = seg_off = 0
+        for i in range(n_scans):
+            segs = seg_bits[seg_off:seg_off + seg_structure[i]]
+            seg_off += seg_structure[i]
+            bits = int(scan_bits[i])
+            t0 = time.perf_counter()
+            data = w[bit_off >> 5:(bit_off + bits + 31) >> 5]
+            data = data.astype(">u4").tobytes()
+            t1 = time.perf_counter()
+            scans.append(native.realign_segments(data, segs,
+                                                 bit_offset=bit_off & 31))
+            tc += time.perf_counter() - t1
+            tb += t1 - t0
+            bit_off += bits
+        runs["b"].append(tb)
+        runs["c"].append(tc)
+    if scans != de._finish_scans_v2(buf, meta_np, n_scans, seg_structure):
+        raise AssertionError("the host finish's steps differ from the finish")
+    ms = {k: statistics.median(v[1:]) * 1e3 for k, v in runs.items()}
+    return {"host (a): pageable D2H of the stream (host clock)": ms["a"],
+            f"host (b): big-endian bytes x{n_scans} (host clock)": ms["b"],
+            f"host (c): native realign/stuff x{n_scans} (host clock)": ms["c"],
+            "host finish, (a) + (b) + (c)": sum(ms.values())}, scans
+
+
+def device_finish_parts(buf, meta, meta_np, n_scans, seg_structure, want):
+    """The device finish (``device_encode._finish_scans_device``) in its
+    parts: the device ms (CUDA events, median of 10, with the card idle
+    and queued behind a spin) of pass 1 alone (``entropy.device_stuff``'s
+    ``realign`` over every window) and of both passes with the markers
+    (``device_stuff``); then on the host clock (median of 5): both passes
+    and the read of the (S,) final segment byte counts, that read alone,
+    the copy of the ``total`` finished bytes into page-locked memory, the
+    split into scans, and the whole finish.  Checks its bytes against
+    ``want``, the host finish's, and prints the finish's peak device
+    memory beside its output's size; returns {part: ms}."""
+    from tpuenc_torch.entropy import device_encode as de
+    from tpuenc_torch.entropy import device_stuff as ds
+
+    seg_bits, host_bits = meta[1 + n_scans:], meta_np[1 + n_scans:]
+    n1 = int(((host_bits + 7) >> 3).sum())
+    tables = ds.segment_tables(seg_bits)[1:]
+
+    def pass1():
+        for j0 in range(0, n1, ds._WINDOW):
+            ds.realign(buf, *tables, j0, min(n1, j0 + ds._WINDOW))
+
+    def passes():
+        return ds.device_stuff(buf, seg_bits, seg_structure, host_bits)
+
+    passes()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    passes()
+    torch.cuda.set_sync_debug_mode("default")
+    print("  the passes enqueue without waiting for the card "
+          "(torch.cuda.set_sync_debug_mode)")
+
+    windows = -(-n1 // ds._WINDOW)
+    pinned = de.PinnedBuffer()
+    st = {}
+    st[f"pass 1: realign, {windows} windows (events, card idle)"] = cuda_ms(
+        pass1)
+    st["pass 1: realign (device, queued)"] = cuda_ms(pass1, queued=True)
+    st["passes 1 + 2 + markers (events, card idle)"] = cuda_ms(passes)
+    st["passes 1 + 2 + markers (device, queued)"] = cuda_ms(passes,
+                                                            queued=True)
+
+    def passes_and_read():
+        out, seg_out, _ = passes()
+        return out, seg_out.cpu().numpy()
+
+    st["passes + read of seg_out_bytes (host clock)"] = host_median(
+        passes_and_read)[0] * 1e3
+    out, seg_out_np = passes_and_read()
+    seg_out = torch.from_numpy(seg_out_np).to(buf.device)
+    st["read of seg_out_bytes alone (host clock)"] = host_median(
+        lambda: seg_out.cpu())[0] * 1e3
+    total = int(seg_out_np.sum())
+
+    def copy():
+        host = pinned.take(total, torch.uint8)
+        host.copy_(out[:total])
+        return host.numpy()
+
+    st[f"page-locked D2H of {total} bytes (host clock)"] = host_median(
+        copy)[0] * 1e3
+    data = copy()
+    st["host split into scans (host clock)"] = host_median(
+        lambda: de.split_scans(data, seg_out_np, seg_structure))[0] * 1e3
+    finish = (buf, meta, meta_np, n_scans, seg_structure, pinned)
+    st["device finish, whole (host clock)"] = host_median(
+        lambda: de._finish_scans_device(*finish))[0] * 1e3
+    del out, seg_out
+    peak, scans = finish_peak(lambda: de._finish_scans_device(*finish))
+    if scans != want:
+        raise AssertionError("the device finish differs from the host finish")
+    print(f"  {n1} realigned bytes in {len(host_bits)} segments -> "
+          f"{total} finished bytes; == the host finish's bytes; peak device "
+          f"memory of the finish {peak / 2**20:.1f} MiB, its output "
+          f"{(2 * n1 + 2 * len(host_bits)) / 2**20:.1f} MiB")
+    return st
+
+
+def finish_peak(fn):
+    """The device memory that ``fn`` adds at its peak, in bytes, and what
+    it returns."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    result = fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base, result
+
+
+@contextlib.contextmanager
+def host_finish():
+    """The whole-image routes with the host finish
+    (``device_encode._finish_scans_v2``) in the device finish's place,
+    for phase 10's comparisons."""
+    from tpuenc_torch.entropy import device_encode as de
+
+    device = de._finish_scans_device
+
+    def host(buf, meta, meta_np, n_scans, segs, pinned=None):
+        return de._finish_scans_v2(buf, meta_np, n_scans, segs)
+
+    de._finish_scans_device = host
+    try:
+        yield
+    finally:
+        de._finish_scans_device = device
 
 
 def counted_kernels():
@@ -828,13 +1011,14 @@ def phase_flagship(dev):
         raise AssertionError("flagship bytes differ between cuda and cpu")
     print("  cuda bytes == cpu bytes")
     e2e(enc, rgb)
-    stage_times(dev, rgb, enc.last_budget)
-    return launches, out, enc.last_budget
+    finish = stage_times(dev, rgb, enc.last_budget)
+    return launches, out, enc.last_budget, finish
 
 
-def phase_fused(dev, want, rung):
+def phase_fused(dev, want, rung, finishes):
     """The interleaved flagship through K8: the budget ladder learns its
-    rung afresh, and the bytes and the rung must be phase 5's."""
+    rung afresh, and the bytes and the rung must be phase 5's.  Keeps the
+    finish's inputs in ``finishes["fused"]``."""
     from tpuenc_torch import Encoder
     from tpuenc_torch.entropy import device_encode as de
 
@@ -854,7 +1038,7 @@ def phase_fused(dev, want, rung):
     for e, label in ((split, " split"), (enc, " fused"), (enc, " fused"),
                      (split, " split")):
         e2e(e, rgb, label)
-    stage_times(dev, rgb, enc.last_budget, fused=True)
+    finishes["fused"] = stage_times(dev, rgb, enc.last_budget, fused=True)
     return launches
 
 
@@ -889,7 +1073,8 @@ sys.stdout.buffer.write(out)
 def progressive_stage_times(dev, rgb, budget):
     """Device ms of each stage of one progressive optimized-table encode
     (CUDA events, median of 10) and the host stages (host clock, median of
-    5).  Returns the budget hint."""
+    5; the finish in its three steps, :func:`host_finish_parts`).  Returns
+    the budget hint and the finish's inputs (as :func:`stage_times`)."""
     from tpuenc_torch.api import optimize_tables
     from tpuenc_torch.core.tables import default_tables, quantization_table
     from tpuenc_torch.core.types import ColorType
@@ -943,12 +1128,11 @@ def progressive_stage_times(dev, rgb, budget):
           f"P2 chunk {chunk}, n2 {n2}, P3 fold {caps_f is not None}")
     st["P2-P4: K3 + K4 + K5"] = cuda_ms(lambda: pk.merge_pack_stream(W, L, budget))
     buf, meta = de._pack_scans_v2(streams, plan, params, budget)
-    meta_np = meta.cpu().numpy()
-    st["host: d2h stream + realign/stuff x12 (host clock)"] = host_times(
-        lambda: de._finish_scans_v2(buf, meta_np, len(plan), seg_structure))
+    finish = (buf, meta, meta.cpu().numpy(), len(plan), seg_structure)
+    st.update(host_finish_parts(*finish)[0])
     for k, v in st.items():
         print(f"  {k:50s} {v:9.4f} ms")
-    return hint
+    return hint, finish
 
 
 def phase_progressive(dev):
@@ -970,9 +1154,9 @@ def phase_progressive(dev):
         raise AssertionError("progressive bytes differ between cuda and cpu")
     print("  cuda bytes == cpu bytes")
     e2e(enc, rgb)
-    hint = progressive_stage_times(dev, rgb, enc.last_budget)
+    hint, finish = progressive_stage_times(dev, rgb, enc.last_budget)
     print(f"  budget hint {hint} words per pack row, rung {enc.last_budget}")
-    return launches, out
+    return launches, out, enc.last_budget, finish
 
 
 # Phase 8's BASELINE.md configurations (benchmarks/baseline_configs.py):
@@ -980,18 +1164,6 @@ def phase_progressive(dev):
 # on a batch of 4K images (:59-75).
 BASELINE1 = (16, 512, 512)
 BASELINE3 = (2, UHD_W, UHD_H)
-
-
-def host_median(fn, reps=5):
-    """Median host-clock seconds of ``reps`` warm calls of ``fn``, each
-    ended by a synchronise, and the runs."""
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    return statistics.median(times), times
 
 
 def batch_vs_loop(enc, loop_enc, imgs, w, h):
@@ -1913,6 +2085,158 @@ def config5_kernel_checks(dev, img, rung, rung_d):
     return results
 
 
+def phase_device_finish(dev, flagship):
+    """The device finish, which the whole-image routes run, beside the
+    host finish it replaced (:func:`host_finish`) on the three flagship
+    routes: for each, the host finish's steps beside the device finish's
+    parts on the same stream (``flagship["finish"]``, kept by phases
+    5-7), one encode with every launch count at 0 just before it, its
+    bytes and rung (the budget memo cleared first) equal to the host
+    finish's, and warm end to end in turns (host, device, device, host).
+    Then the 26 fixtures, split and fused, each file and rung equal to the
+    host finish's and to the frozen file, and the largest whole-image
+    stream (:func:`near_limit_finish`).  Returns {path: launches}."""
+    from tpuenc_torch import ColorType, Encoder
+    from tpuenc_torch.entropy import device_encode as de
+    from tpuenc_torch.testing.fixtures import build_cases, img
+
+    split_kernels = ["fdct_quantize", "pack_blocks", "merge_chunks",
+                     "fold_rows", "concat_rows"]
+    routes = [
+        ("split", lambda: Encoder(90, device=dev), "device-v2",
+         split_kernels, ["fused_sample_pack"]),
+        ("fused", lambda: Encoder(90, device=dev, fused_p1=True),
+         "device-v2-fused",
+         ["fused_sample_pack", "merge_chunks", "fold_rows", "concat_rows"],
+         ["fdct_quantize", "pack_blocks"]),
+        ("progressive", lambda: progressive_encoder(dev), "device-v2",
+         ["fdct_quantize", "merge_chunks", "fold_rows", "concat_rows",
+          "pack_acbands", "hist_count"],
+         ["pack_blocks", "hist_sym", "fused_sample_pack"]),
+    ]
+    rgb = make_rgb(FLAGSHIP_W, FLAGSHIP_H)
+    paths = {}
+    for name, make, path, required, absent in routes:
+        print(f"  -- {name}")
+        finish = flagship["finish"][name]
+        parts, scans = host_finish_parts(*finish)
+        parts.update(device_finish_parts(*finish, scans))
+        for k, v in parts.items():
+            print(f"  {k:50s} {v:9.4f} ms")
+        de._budget_memo.clear()
+        host = make()
+        with host_finish():
+            want = host.encode(rgb, FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB)
+        de._budget_memo.clear()
+        enc = make()
+        out, paths[f"{name}_device_finish"] = drive(enc, rgb, required,
+                                                    absent, path=path)
+        if out != want:
+            raise AssertionError(f"{name}: device finish bytes differ from "
+                                 f"the host finish's")
+        if enc.last_budget != host.last_budget:
+            raise AssertionError(f"{name}: rung {enc.last_budget}, the host "
+                                 f"finish's {host.last_budget}")
+        print(f"  {len(out)} bytes at rung {enc.last_budget} == the host "
+              f"finish's")
+        for device, label in ((False, " host finish"), (True, " device finish"),
+                              (True, " device finish"), (False, " host finish")):
+            with contextlib.nullcontext() if device else host_finish():
+                e2e(enc if device else host, rgb, label)
+
+    for fused in (False, True):
+        cases = build_cases(dev, fused_p1=fused)
+        for name, (build, ct, ch, seed, w, h) in cases.items():
+            px = img(ch, seed, w, h)
+            de._budget_memo.clear()
+            host = build()
+            with host_finish():
+                want = host.encode(px, w, h, ct)
+            de._budget_memo.clear()
+            enc = build()
+            got = enc.encode(px, w, h, ct)
+            frozen = open(os.path.join(HERE, "tests", "fixtures",
+                                       f"{name}.jpg"), "rb").read()
+            if got != want or got != frozen:
+                raise AssertionError(f"fixture {name} (fused_p1={fused}): "
+                                     f"device finish bytes differ")
+            if enc.last_budget != host.last_budget:
+                raise AssertionError(f"fixture {name}: rung {enc.last_budget}"
+                                     f", the host finish's {host.last_budget}")
+            if not enc.last_encode_path.startswith("device-v2"):
+                raise AssertionError(f"fixture {name} ran on "
+                                     f"{enc.last_encode_path}")
+        print(f"  fixtures (fused_p1={fused}): all {len(cases)} through the "
+              f"device finish == the host finish's files and rungs")
+    near_limit_finish(dev)
+    return paths
+
+
+# The largest whole-image encode: the most blocks the limit lets through
+# ((w // 8 + 1) * (h // 8 + 1) = 2,989,441 <= 3,000,000; 2,985,984 MCUs
+# of three blocks at 4:4:4), the flagship's content tiled, at q90.
+NEAR_LIMIT = 13824
+
+
+def near_limit_finish(dev):
+    """One encode of the largest whole-image image on "device-v2": the
+    encode's peak device memory and the device finish's (which must stay
+    within its output, 2 bytes per realigned byte and per segment, and
+    sixteen int64 window temporaries), the finish's scans equal to the
+    host finish's on the same stream, and each finish once on the host
+    clock."""
+    from tpuenc_torch import ColorType, Encoder
+    from tpuenc_torch.entropy import device_encode as de
+    from tpuenc_torch.entropy import device_stuff as ds
+
+    w = h = NEAR_LIMIT
+    px = np.tile(make_rgb(FLAGSHIP_W, FLAGSHIP_H),
+                 (-(-h // FLAGSHIP_H), -(-w // FLAGSHIP_W), 1))[:h, :w]
+    px = np.ascontiguousarray(px)
+    print(f"  -- {w}x{h} RGB, the flagship tiled, q90")
+    seen = []
+    device = de._finish_scans_device
+
+    def recorded(*args):
+        peak, scans = finish_peak(lambda: device(*args))
+        seen.append((args, peak))
+        return scans
+
+    enc = Encoder(90, device=dev)
+    de._finish_scans_device = recorded
+    try:
+        encode_peak, out = finish_peak(
+            lambda: enc.encode(px, w, h, ColorType.RGB))
+    finally:
+        de._finish_scans_device = device
+    ((args, peak),) = seen
+    if enc.last_encode_path != "device-v2":
+        raise AssertionError(f"ran on {enc.last_encode_path}")
+    check_jpeg(out)
+    buf, meta, meta_np, n_scans, segs, pinned = args
+    seg_bits = meta_np[1 + n_scans:].astype(np.int64)
+    n1, S = int(((seg_bits + 7) >> 3).sum()), len(seg_bits)
+    bound = 2 * n1 + 2 * S + 16 * 8 * ds._WINDOW
+    t0 = time.perf_counter()
+    scans = device(*args)
+    dev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = de._finish_scans_v2(buf, meta_np, n_scans, segs)
+    host_s = time.perf_counter() - t0
+    if scans != want:
+        raise AssertionError("near the limit: the device finish differs")
+    print(f"  {len(out)} bytes at rung {enc.last_budget}; {n1} realigned "
+          f"bytes in {S} segments; peak device memory: the encode "
+          f"{encode_peak / 2**20:.1f} MiB, the device finish "
+          f"{peak / 2**20:.1f} MiB (bound {bound / 2**20:.1f} MiB: output "
+          f"{(2 * n1 + 2 * S) / 2**20:.1f} + windows)")
+    print(f"  the device finish's scans == the host finish's; host clock, "
+          f"one run each: device finish {dev_s * 1e3:.3f} ms, host finish "
+          f"{host_s * 1e3:.3f} ms")
+    if peak > bound:
+        raise AssertionError("the device finish's memory is past its bound")
+
+
 KERNELS = [
     # (name, counter key, results key, source, replaces)
     ("K1 fdct_quantize", "fdct_quantize", "K1 fdct_quantize",
@@ -1938,15 +2262,18 @@ KERNELS = [
 
 
 def main():
+    sys.stdout.reconfigure(line_buffering=True)
     dev = torch.device("cuda:0")
-    flagship = {}
+    flagship = {"finish": {}}
 
     def phase_5():
-        launches, flagship["bytes"], flagship["rung"] = phase_flagship(dev)
+        (launches, flagship["bytes"], flagship["rung"],
+         flagship["finish"]["split"]) = phase_flagship(dev)
         return launches
 
     def phase_6():
-        launches, flagship["progressive"] = phase_progressive(dev)
+        (launches, flagship["progressive"], flagship["progressive_rung"],
+         flagship["finish"]["progressive"]) = phase_progressive(dev)
         return launches
 
     phases = [("1. environment", phase_env), ("2. build", phase_build),
@@ -1956,13 +2283,17 @@ def main():
               ("5. flagship, interleaved", phase_5),
               ("6. flagship, progressive with optimized tables", phase_6),
               ("7. flagship, interleaved, fused P1 (K8)",
-               lambda: phase_fused(dev, flagship["bytes"], flagship["rung"])),
+               lambda: phase_fused(dev, flagship["bytes"], flagship["rung"],
+                                   flagship["finish"])),
               ("8. batch (encode_batch: single program, per image)",
                lambda: phase_batch(dev, flagship["bytes"])),
               ("9. bounded memory and streaming (BASELINE config 5, "
                "16384x16384 YCCK)",
                lambda: phase_config5(dev, flagship["bytes"],
-                                     flagship["progressive"]))]
+                                     flagship["progressive"])),
+              ("10. the device finish beside the host finish on the "
+               "flagship routes, the fixtures and near the block limit",
+               lambda: phase_device_finish(dev, flagship))]
     out = {}
     for title, fn in phases:
         print(f"== {title}")
@@ -1977,7 +2308,7 @@ def main():
     paths = {"interleaved": out[phases[4][0]],
              "progressive_optimized": out[phases[5][0]],
              "interleaved_fused": out[phases[6][0]],
-             **batch_paths, **config5_paths}
+             **batch_paths, **config5_paths, **out[phases[9][0]]}
 
     kernels = []
     for name, counter, key, source, replaces in KERNELS:

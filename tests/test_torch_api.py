@@ -130,9 +130,9 @@ def test_pack_rows_count_every_scan():
 
 
 def test_import_leaves_out_jax():
-    """Importing the port and encoding (split, fused, through the chunked
-    path with the limit forced down, and streamed) loads neither jax nor
-    tpuenc."""
+    """Importing the port and encoding (split and fused, each through the
+    device finish, through the chunked path with the limit forced down,
+    and streamed) loads neither jax nor tpuenc."""
     code = (
         "import sys, numpy as np, tpuenc_torch as t\n"
         "from tpuenc_torch import api\n"

@@ -907,3 +907,162 @@ def test_stuff_stream_raises_on_an_invalid_buffer(dev):
     with pytest.raises(ValueError):
         native.stuff_stream(bytes(64), 0, 65)
     assert native.stuff_stream(b"\xff" * 64, 0, 64) == b"\xff\x00" * 64
+
+
+def _dirty_allocator(dev):
+    """Leave the caching allocator's blocks, large and small, holding
+    0xFF bytes, so that what the device finish allocates next starts
+    dirty."""
+    junk = [torch.full((256 << 20,), 0xFF, dtype=torch.uint8, device=dev)]
+    junk += [torch.full((256 << 10,), 0xFF, dtype=torch.uint8, device=dev)
+             for _ in range(64)]
+    torch.cuda.synchronize()
+    del junk
+
+
+def _gradient(w, h, seed=42):
+    """A flagship-like image: a smooth ramp per channel plus +-24 noise."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.stack([xx * 255 // w, yy * 255 // h,
+                     (xx + yy) * 255 // (w + h)], axis=2)
+    noise = rng.integers(-24, 24, base.shape)
+    return np.clip(base + noise, 0, 255).astype(np.uint8)
+
+
+def _many_ff(w=48, h=48):
+    px = np.zeros((h, w, 3), np.uint8)
+    px[::2] = 255
+    px[:, ::2, 1] = 255
+    return px
+
+
+DEVICE_FINISH = {
+    # name: (image, quality, encoder settings)
+    "flagship_split": (lambda: _gradient(2000, 1800), 90, {}),
+    "flagship_fused": (lambda: _gradient(2000, 1800), 90, {"fused": True}),
+    "flagship_progressive_optimized": (lambda: _gradient(2000, 1800), 90,
+                                       {"scans": 4, "opt": True}),
+    "uhd_420_restart64": (lambda: _gradient(3840, 2160), 80,
+                          {"sf": "F_2_2", "restart": 64}),
+    "many_ff": (_many_ff, 100, {"restart": 2}),
+}
+
+
+def _host_finish(buf, meta, meta_np, n_scans, segs, pinned=None):
+    """The host finish in the device finish's place."""
+    from tpuenc_torch.entropy import device_encode as de
+
+    return de._finish_scans_v2(buf, meta_np, n_scans, segs)
+
+
+def _recorded_finish(monkeypatch):
+    """Record every run of the device finish: its inputs, its scans and
+    the peak device memory it added, with the allocator's blocks dirtied
+    just before it."""
+    from tpuenc_torch.entropy import device_encode as de
+
+    seen = []
+    finish = de._finish_scans_device
+
+    def recorded(buf, meta, meta_np, n_scans, segs, pinned=None):
+        _dirty_allocator(buf.device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        scans = finish(buf, meta, meta_np, n_scans, segs, pinned)
+        peak = torch.cuda.max_memory_allocated() - base
+        seen.append((buf, meta, meta_np, n_scans, segs, scans, peak))
+        return scans
+
+    monkeypatch.setattr(de, "_finish_scans_device", recorded)
+    return seen, finish
+
+
+@pytest.mark.parametrize("name", sorted(DEVICE_FINISH))
+def test_device_finish_on_cuda(dev, name, monkeypatch):
+    """The device finish on the card, its intermediates on a dirtied
+    allocator: the file equals the host finish's, and the finish's scans
+    equal the same finish run on the CPU over a copy of its stream."""
+    from tpuenc_torch import ColorType, Encoder, SamplingFactor
+    from tpuenc_torch.entropy import device_encode as de
+
+    make, quality, kw = DEVICE_FINISH[name]
+    px = make()
+    h, w = px.shape[:2]
+
+    def encoder():
+        e = Encoder(quality, device=dev, fused_p1=kw.get("fused", False))
+        if "sf" in kw:
+            e.set_sampling_factor(SamplingFactor[kw["sf"]])
+        e.set_restart_interval(kw.get("restart", 0))
+        if kw.get("scans"):
+            e.set_progressive_scans(kw["scans"])
+        e.set_optimized_huffman_tables(kw.get("opt", False))
+        return e
+
+    with monkeypatch.context() as m:
+        m.setattr(de, "_finish_scans_device", _host_finish)
+        want = encoder().encode(px, w, h, ColorType.RGB)
+    seen, finish = _recorded_finish(monkeypatch)
+    enc = encoder()
+    assert enc.encode(px, w, h, ColorType.RGB) == want
+    assert enc.last_encode_path == ("device-v2-fused" if kw.get("fused")
+                                    else "device-v2")
+    ((buf, meta, meta_np, n_scans, segs, scans, _),) = seen
+    assert buf.is_cuda
+    assert finish(buf.cpu(), meta.cpu(), meta_np, n_scans, segs) == scans
+
+
+def test_device_finish_memory_near_the_block_limit(dev, monkeypatch):
+    """The largest whole-image encode: 13824x13824 RGB at q90, the
+    flagship-like image tiled (2,989,441 blocks as the limit counts them),
+    a scan of ~150 MB.  The device finish gives the host finish's scans,
+    and adds at most its output (2 bytes per realigned byte and per
+    segment) and a fixed set of window temporaries to the card's memory,
+    whatever the stream's size."""
+    from tpuenc_torch import ColorType, Encoder, api
+    from tpuenc_torch.entropy import device_encode as de
+    from tpuenc_torch.entropy import device_stuff as ds
+
+    w = h = 13824
+    assert (w // 8 + 1) * (h // 8 + 1) <= api.DEVICE_BLOCK_LIMIT
+    px = np.ascontiguousarray(np.tile(_gradient(2000, 1800), (8, 7, 1))[:h, :w])
+    seen, _ = _recorded_finish(monkeypatch)
+    enc = Encoder(90, device=dev)
+    enc.encode(px, w, h, ColorType.RGB)
+    assert enc.last_encode_path == "device-v2"
+    ((buf, meta, meta_np, n_scans, segs, scans, peak),) = seen
+    seg_bits = meta_np[1 + n_scans:].astype(np.int64)
+    n1, S = int(((seg_bits + 7) >> 3).sum()), len(seg_bits)
+    assert n1 > 100 << 20
+    assert peak <= 2 * n1 + 2 * S + 16 * 8 * ds._WINDOW
+    assert scans == de._finish_scans_v2(buf, meta_np, n_scans, segs)
+
+
+def test_all_ff_stream_on_cuda(dev):
+    """An all-0xFF stream (twice the bytes out, past tpuenc's slack) on
+    the card equals its CPU run and the native host finish."""
+    from tpuenc_torch.entropy import native
+    from tpuenc_torch.entropy.device_stuff import device_stuff
+
+    structure = [7, 1, 12]
+    bits = np.random.default_rng(3).integers(1, 20000, sum(structure))
+    words = np.full((int(bits.sum()) + 31) >> 5, -1, np.int32)
+    got = {}
+    for d in (dev, "cpu"):
+        if d == dev:
+            _dirty_allocator(dev)
+        out, seg_out, total = device_stuff(
+            torch.from_numpy(words).to(d), torch.from_numpy(bits).to(d),
+            structure, bits)
+        got[str(d)] = (out[:int(total)].cpu().numpy().tobytes(),
+                       seg_out.cpu().numpy().tolist())
+    assert got[str(dev)] == got["cpu"]
+    data = words.view(np.uint32).byteswap().tobytes()
+    host, s = b"", 0
+    for n in structure:
+        host += native.realign_segments(data, bits[s:s + n],
+                                        bit_offset=int(bits[:s].sum()))
+        s += n
+    assert got["cpu"][0] == host

@@ -154,6 +154,12 @@ class Encoder:
     same.  It is routing by mode: sequential, progressive and
     optimized-table encodes (optimized tables make the scans sequential)
     take the split path as ever ("device-v2").
+
+    The whole-image routes, and so ``encode_batch``'s per-image route,
+    finish their scans on the encode device (``entropy.device_stuff``:
+    byte alignment, 1-padding, 0xFF stuffing and RST markers) and copy
+    back only the finished bytes.  The single-program batch and the
+    chunked paths finish on the host, as in ``tpuenc``.
     """
 
     def __init__(self, quality: int, *, device, fused_p1: bool = False,
@@ -176,8 +182,8 @@ class Encoder:
         # quality), and the default Huffman tables' tensors.
         self._quant: dict = {}
         self._default_huffman = None
-        # encode_batch's page-locked buffer for the single program's
-        # stream on a CUDA device, made at its first batch
+        # The page-locked buffer on a CUDA device for the single program's
+        # stream and the device finish's bytes, made at its first use
         # (entropy.device_encode.PinnedBuffer).
         self._pinned = None
         # Which path produced the last output: encode()'s "device-v2" (the
@@ -455,12 +461,14 @@ class Encoder:
         * ``"device-batch"``: interleaved, default tables, at most 3M
           blocks, a restart interval (if any) that divides each image's
           MCUs: ONE program over the whole batch.  It packs with K1 and
-          K2 even when ``fused_p1`` is set, as in ``tpuenc``, where the
-          fused kernel reaches only the per-image program.
+          K2 even when ``fused_p1`` is set, and finishes on the host, as
+          in ``tpuenc``, where the fused kernel and the device finish
+          reach only the per-image program.
         * ``"device-batch-per-image"``: any other batch (another mode,
           optimized tables, a larger batch, a restart interval that does
           not divide the MCUs), each image as :meth:`encode` runs it,
-          through K8 where ``fused_p1`` reaches it there.
+          through K8 where ``fused_p1`` reaches it there, and through the
+          device finish.
 
         A failure inside a route raises; no route gives way to another.
         ``last_budget`` is the single program's rung, or the highest rung
@@ -487,11 +495,9 @@ class Encoder:
             return results
 
         q_tables, huffman, params = self._default_tables(config)
-        if self.device.type == "cuda" and self._pinned is None:
-            self._pinned = de.PinnedBuffer()
         batch_scans, budget = de.device_encode_batch_single(
             pixel_arrays, width, height, color_type, config, params,
-            self._pinned)
+            self._pinned_buffer())
         self.last_encode_path, self.last_budget = route, budget
 
         jct = color_type.jpeg_color_type
@@ -517,6 +523,12 @@ class Encoder:
             raise errors.WriteError(str(e)) from e
         return payload
 
+    def _pinned_buffer(self):
+        """The encoder's page-locked buffer on a CUDA device, else None."""
+        if self.device.type == "cuda" and self._pinned is None:
+            self._pinned = de.PinnedBuffer()
+        return self._pinned
+
     def _leading_segments(self, config, jct) -> bytearray:
         """SOI + JFIF APP0 + (Adobe APP14) + user APP segments — everything
         before the frame header (reference encoder.rs:536-554)."""
@@ -536,8 +548,9 @@ class Encoder:
         it (tpuenc/api.py:700-750): past the whole-image limits the
         interleaved mode takes "device-chunked" (the split path even under
         ``fused_p1``: there is no fused chunked path) and every other mode
-        "device-chunked-multipass"; within them "device-v2", or
-        "device-v2-fused" for the interleaved mode under ``fused_p1``."""
+        "device-chunked-multipass", both with their host finish; within
+        them "device-v2", or "device-v2-fused" for the interleaved mode
+        under ``fused_p1``, both with the device finish."""
         interleaved = config.mode() == "interleaved"
         if _over_limits(width, height, color_type, config):
             return "device-chunked" if interleaved else "device-chunked-multipass"
@@ -600,6 +613,7 @@ class Encoder:
         if not pixels.flags.writeable:
             pixels = pixels.copy()
         px = torch.from_numpy(np.ascontiguousarray(pixels)).to(self.device)
+        pinned = self._pinned_buffer()
         if config.optimize_huffman_table:
             # Two passes (tpuenc/api.py:776-825): coefficients and
             # histograms on the device, one small copy of the counts, the
@@ -618,12 +632,12 @@ class Encoder:
             params = params._replace(dc=dc, ac=ac)
             scans, budget = de.device_encode_scans(
                 px, width, height, color_type, config, params,
-                comp_streams=streams, budget_hint=hint,
+                comp_streams=streams, budget_hint=hint, pinned=pinned,
             )
         else:
             scans, budget = de.device_encode_scans(
                 px, width, height, color_type, config, params,
-                fused_p1=route == "device-v2-fused",
+                fused_p1=route == "device-v2-fused", pinned=pinned,
             )
         self.last_encode_path, self.last_budget = route, budget
         return scans

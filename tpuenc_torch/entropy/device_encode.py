@@ -9,9 +9,12 @@ P2-P4 merge of all scans' block strings in plan order, and a small
 goes from its samples (``kernels.pipeline.fn_cm_samples``) through K8,
 which transforms, quantizes and packs each block in one pass, to the same
 merge.  The host reads ``meta`` (overflow flag, scan bits,
-per-segment bits), copies the first ``total_words`` words of the stream,
-and finishes each scan's restart segments from its bit offset with the
-native realigner (byte-align, 1-pad, 0xFF-stuff, RST markers).
+per-segment bits).  One image's scans are then finished on the encode
+device (``entropy.device_stuff``: byte-align, 1-pad, 0xFF-stuff, RST
+markers), and the host copies the finished bytes and splits them into
+scans.  A batch's single program instead copies the first
+``total_words`` words of the stream and finishes each image's restart
+segments from its bit offset with the native realigner.
 
 A batch of same-shape images takes one of two routes, chosen up front
 (:func:`batch_route`): one program over every image's blocks
@@ -35,6 +38,7 @@ import torch
 from ..core.types import ColorType, EncoderConfig
 from . import native
 from .device_pack import ScanSpec
+from .device_stuff import device_stuff as stuff_on_device
 from .huffopt import progressive_bands
 from .pallas_pack import (
     dc_only_pack_blocks,
@@ -349,6 +353,36 @@ def _finish_scans_v2(buf_words, meta_np, n_scans: int,
     return scans
 
 
+def _finish_scans_device(buf_words, meta, meta_np, n_scans: int,
+                         seg_structure, pinned=None) -> List[bytes]:
+    """Device finishing (``tpuenc``'s ``_finish_scans_v2_device``): both
+    passes of :func:`entropy.device_stuff.device_stuff` on the stream's
+    device, sized from the segment bits the host has already read
+    (``meta_np``) and fed the device's own copy of them (``meta``).  Then
+    one read of the (S,) final segment byte counts, one copy of the
+    ``total`` finished bytes (into ``pinned``, a :class:`PinnedBuffer`,
+    where given), and the split into scans on the host."""
+    out, seg_out, _ = stuff_on_device(buf_words, meta[1 + n_scans:],
+                                      seg_structure, meta_np[1 + n_scans:])
+    seg_out_np = seg_out.cpu().numpy()
+    total = int(seg_out_np.sum())
+    if pinned is None:
+        data = out[:total].cpu().numpy()
+    else:
+        host = pinned.take(total, torch.uint8)
+        host.copy_(out[:total])
+        data = host.numpy()
+    return split_scans(data, seg_out_np, seg_structure)
+
+
+def split_scans(data, seg_out_bytes, seg_structure) -> List[bytes]:
+    """Each scan's bytes of the device finish's output ``data`` (uint8),
+    from the final segment byte counts and the per-scan segment counts."""
+    first = np.cumsum([0, *seg_structure[:-1]])
+    ends = np.cumsum(np.add.reduceat(seg_out_bytes, first))
+    return [data[a:b].tobytes() for a, b in zip([0, *ends[:-1]], ends)]
+
+
 def seg_structure(layout, scan_plan):
     """Each scan's number of restart segments, from the blocks of the
     stream it reads (the MCU stream, or its component's)."""
@@ -385,7 +419,8 @@ def _ladder(key, budget_hint: int = 0):
 def device_encode_scans(pixels, width: int, height: int,
                         color_type: ColorType, config: EncoderConfig,
                         params: EncodeParams, comp_streams=None,
-                        budget_hint: int = 0, fused_p1: bool = False):
+                        budget_hint: int = 0, fused_p1: bool = False,
+                        pinned=None):
     """Encode every scan of ``pixels`` (an (H, W[, C]) uint8 tensor on the
     params' device).  ``comp_streams``: the coefficient streams when they
     are already on the device (the two-pass optimized-table flow), else
@@ -396,9 +431,11 @@ def device_encode_scans(pixels, width: int, height: int,
     with K8 (:func:`_pack_fused`) in place of K1 and K2; the bytes, the
     overflow flags and so the rungs are the split path's.  It raises
     ``ValueError`` for any other plan, and with ``comp_streams``.
-    Returns ``(scans, budget)``: the per-scan entropy byte strings
-    (stuffed, RST markers in place) in plan order, and the budget rung
-    that packed them."""
+    The scans are finished on the device (:func:`_finish_scans_device`,
+    the finished bytes copied into ``pinned``, a :class:`PinnedBuffer`,
+    where given).  Returns ``(scans, budget)``: the per-scan entropy byte
+    strings (stuffed, RST markers in place) in plan order, and the budget
+    rung that packed them."""
     from ..kernels.pipeline import fn_cm, fn_cm_samples
 
     layout, scan_plan, segs = _plan(width, height, color_type, config)
@@ -426,7 +463,8 @@ def device_encode_scans(pixels, width: int, height: int,
         if meta_np[0]:  # overflow: next rung
             continue
         _memo_put(key, budget)
-        return _finish_scans_v2(buf, meta_np, len(scan_plan), segs), budget
+        return _finish_scans_device(buf, meta, meta_np, len(scan_plan),
+                                    segs, pinned), budget
     raise RuntimeError(
         f"every budget rung overflowed ({width}x{height} {color_type})"
     )
@@ -468,10 +506,11 @@ def batch_route(n: int, width: int, height: int, color_type: ColorType,
 
 class PinnedBuffer:
     """A page-locked host buffer that the single program copies its
-    stream words into, grown to the power of two that holds the largest
-    copy asked of it and reused after that: ``cudaHostAlloc`` of tens of
-    MB costs milliseconds, and a copy into pageable memory runs several
-    times slower than one into page-locked memory."""
+    stream words into, and the device finish its finished bytes, grown to
+    the power of two that holds the largest copy asked of it and reused
+    after that: ``cudaHostAlloc`` of tens of MB costs milliseconds, and a
+    copy into pageable memory runs several times slower than one into
+    page-locked memory."""
 
     def __init__(self):
         self._buf = None
