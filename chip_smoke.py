@@ -99,7 +99,28 @@ Phases, each printing its own lines and its wall seconds:
    the 26 fixtures, split and fused, each file and rung equal to the host
    finish's and to the frozen file; and the largest whole-image encode,
    13824x13824 RGB (the flagship tiled) at q90, with the finish's peak
-   device memory held to its bound.
+   device memory held to its bound;
+11. the striped encode over ranks (``tpuenc_torch.shard``), its ranks
+   processes of their own (``tpuenc_torch.testing.dist.launch``) that
+   import this file afresh: (a) BASELINE config 5 through
+   ``ShardedEncoder`` over a (1, 4) gloo mesh, every rank computing on
+   cuda:0 and memory-mapping phase 9's input (written once to a ``.npy``
+   in the temporary directory), each rank's file equal to phase 9 (a)'s
+   by sha256, per rank the stripe's upload, the coefficient, histogram
+   and pack device spans, each collective (DC tails, histograms, ladder
+   flags, gather), the host assembly, the rung, the peak device memory,
+   the wall and MP/s (first and warm), and the synchronizing calls of the
+   warm encode (``set_sync_debug_mode("warn")``); (d) the same with
+   optimized tables, equal to phase 9 (d)'s file, the reduced histograms
+   equal to phase 9 (d)'s single-device ones; (e) BASELINE config 1 over
+   a (2, 2) mesh, 8 images a batch coordinate, each file equal to
+   ``encode``'s;
+   (f) the port's ``dryrun_multichip`` on the four ranks; (g) the
+   interleaved flagship over a one-rank NCCL mesh on "cuda", equal to
+   phase 5's bytes; then K1, K2 (stripe 1, its DC chain from stripe 0's
+   tail), K3, K4, K5 and K7 at the stripes' shapes against their plain
+   versions, as phase 3.  Four ranks share one card: no figure of phase
+   11 is a scaling figure.
 
 It prints a JSON line of the kernels (with every shape each was checked
 at), the card's name and power limit, and last ``{"ok": true, "device":
@@ -926,13 +947,9 @@ def host_finish():
 
 def counted_kernels():
     """Every kernel wrapper, with its launch counter."""
-    from tpuenc_torch.entropy import pallas_hist as ph
-    from tpuenc_torch.entropy import pallas_pack as pk
-    from tpuenc_torch.kernels import pallas_fdct
+    from tpuenc_torch.testing.shard_cases import kernel_wrappers
 
-    return [pallas_fdct.fdct_quantize, pk.pack_blocks, pk.merge_chunks,
-            pk.fold_rows, pk.concat_rows, pk.pack_acbands, ph.hist_count,
-            pk.fused_sample_pack, ph.hist_sym]
+    return kernel_wrappers()
 
 
 def counted(run):
@@ -1804,9 +1821,13 @@ print(json.dumps({"seconds": time.perf_counter() - t0, "bytes": n_bytes,
 """
 
 
-def phase_config5(dev, flagship_bytes, progressive_bytes):
-    """Phase 9: bounded memory and streaming at BASELINE config 5."""
+def phase_config5(dev, flagship_bytes, progressive_bytes, keep):
+    """Phase 9: bounded memory and streaming at BASELINE config 5.  Keeps
+    in ``keep`` what phase 11 holds its striped encode to: the input
+    ("img"), (a)'s and (d)'s (length, sha256) and (d)'s histograms."""
     import hashlib
+
+    from tpuenc_torch.entropy import chunked_multipass as cm
 
     from tpuenc_torch import ColorType, api
     from tpuenc_torch.entropy import device_encode as de
@@ -1834,6 +1855,7 @@ def phase_config5(dev, flagship_bytes, progressive_bytes):
     if enc.last_encode_path != "device-chunked":
         raise AssertionError(f"(a) ran on {enc.last_encode_path}")
     check_jpeg(out_a)
+    keep.update(img=img, a=(len(out_a), hashlib.sha256(out_a).hexdigest()))
     want = {"fdct_quantize": 4 * n_chunks, **expected_pack_launches(st.packs)}
     got = {k: launches[k] for k in want}
     if got != want or n_chunks != want_chunks:
@@ -1924,8 +1946,19 @@ def phase_config5(dev, flagship_bytes, progressive_bytes):
 
     # (d) optimized tables: the chunked multipass path.
     enc_d = config5_encoder(dev, optimized=True)
-    out_d, launches_d, peak_d = peak_encode(
-        dev, lambda: enc_d.encode(img, w, h, ct))
+    tables = cm.tables_from_histograms
+
+    def kept_tables(pairs):  # the image's histograms, DC counts corrected
+        keep["d_hists"] = np.stack([np.stack(p) for p in pairs])
+        return tables(pairs)
+
+    cm.tables_from_histograms = kept_tables
+    try:
+        out_d, launches_d, peak_d = peak_encode(
+            dev, lambda: enc_d.encode(img, w, h, ct))
+    finally:
+        cm.tables_from_histograms = tables
+    keep["d"] = (len(out_d), hashlib.sha256(out_d).hexdigest())
     store = 128 * sum(de._plan(w, h, ct, enc_d._config())[0]
                       ["comp_block_counts"])
     print(f"  (d) {len(out_d)} bytes, path {enc_d.last_encode_path}, rung "
@@ -2237,6 +2270,406 @@ def near_limit_finish(dev):
         raise AssertionError("the device finish's memory is past its bound")
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the striped encode over ranks (tpuenc_torch.shard).  The rank
+# functions run in processes of their own (tpuenc_torch.testing.dist.launch,
+# the spawn method), which import this file afresh as their main module.
+# ---------------------------------------------------------------------------
+
+SHARD_RANKS = 4
+
+
+class ShardStages:
+    """One rank's stages of a striped encode, from wrappers around the
+    functions ``tpuenc_torch.shard`` calls (restored on exit): on the card
+    (CUDA events), the coefficient step (``fn_cm``), the histograms and the
+    pack of every scan (each rung tried); on the host clock, the stripe's
+    upload (to the end of its copy), each collective (the DC tails, the
+    histograms, the ladder's overflow flags, the gather of the bits or
+    files), and the host assembly (joining the stripes' bits, realigning
+    and writing the file); and the reduced histograms."""
+
+    def __init__(self):
+        from tpuenc_torch.shard import encode, stripes
+
+        self.targets = [(stripes, "pad_stripe", "upload", "host"),
+                        (stripes, "fn_cm", "coefficients", "device"),
+                        (stripes, "scan_histograms", "histograms", "device"),
+                        (stripes, "exchange_tails", "tails", "host"),
+                        (stripes, "reduce_histograms", "reduce", "host"),
+                        (encode, "general_pack", "pack", "device"),
+                        (encode, "agree_overflow", "ladder", "host"),
+                        (encode, "gather", "gather", "host"),
+                        (encode, "join_scan", "assembly", "host"),
+                        (encode.ShardedEncoder, "_file", "assembly", "host")]
+        self.real = [getattr(obj, name) for obj, name, _, _ in self.targets]
+        self.host = {}
+        self.events = {}
+        self.calls = {}
+        self.hists = None
+
+    def __enter__(self):
+        for (obj, name, key, kind), real in zip(self.targets, self.real):
+            setattr(obj, name, self._wrap(real, key, kind))
+        return self
+
+    def _wrap(self, real, key, kind):
+        def timed(*args, **kwargs):
+            self.calls[key] = self.calls.get(key, 0) + 1
+            if kind == "device":
+                a = torch.cuda.Event(enable_timing=True)
+                a.record()
+                out = real(*args, **kwargs)
+                b = torch.cuda.Event(enable_timing=True)
+                b.record()
+                self.events.setdefault(key, []).append((a, b))
+                return out
+            t0 = time.perf_counter()
+            out = real(*args, **kwargs)
+            if key == "upload":
+                torch.cuda.synchronize()
+            if key == "reduce":
+                self.hists = out
+            self.host[key] = self.host.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return timed
+
+    def __exit__(self, *exc):
+        for (obj, name, _, _), real in zip(self.targets, self.real):
+            setattr(obj, name, real)
+        torch.cuda.synchronize()
+
+    def summary(self):
+        out = {k: v * 1e3 for k, v in self.host.items()}
+        for key, pairs in self.events.items():
+            out[key] = sum(a.elapsed_time(b) for a, b in pairs)
+        return out
+
+
+def count_syncs(run):
+    """``run()`` under ``torch.cuda.set_sync_debug_mode("warn")``: its
+    result, the number of synchronizing CUDA calls and where they were
+    made (file:line of the caller)."""
+    import collections
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in seen if "synchroniz" in str(w.message)]
+    where = collections.Counter(f"{os.path.basename(w.filename)}:{w.lineno}"
+                                for w in syncs)
+    return out, len(syncs), dict(where)
+
+
+def shard_encode(enc, images, w, h, ct, stages=True):
+    """One ``encode_batch`` on this rank, with every launch count set to
+    0 and the peak device memory reset just before it: the files, its
+    wall seconds, its launches, its peak device memory, and its stages
+    (:class:`ShardStages`, or None)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with ShardStages() if stages else contextlib.nullcontext() as st:
+        t0 = time.perf_counter()
+        files, launches = counted(lambda: enc.encode_batch(images, w, h, ct))
+        wall = time.perf_counter() - t0
+    return files, wall, launches, torch.cuda.max_memory_allocated(), st
+
+
+def shard_record(files, wall, launches, peak, st, enc, syncs=None):
+    import hashlib
+
+    return {"sha256": [hashlib.sha256(f).hexdigest() for f in files],
+            "bytes": [len(f) for f in files], "wall_s": wall,
+            "launches": launches, "peak": peak, "path": enc.last_encode_path,
+            "rung": enc.last_budget,
+            "stages": None if st is None else st.summary(),
+            "calls": None if st is None else st.calls,
+            "hists": None if st is None else st.hists, "syncs": syncs}
+
+
+def phase11_rank(npy):
+    """Phase 11 (a), (d), (e) and (f) on one of four gloo ranks, each
+    computing on cuda:0."""
+    from tpuenc_torch import ColorType, Encoder, SamplingFactor
+    from tpuenc_torch.shard.dryrun import dryrun_multichip
+    from tpuenc_torch.shard.encode import ShardedEncoder
+    from tpuenc_torch.shard.mesh import make_mesh
+
+    dev = torch.device("cuda:0")
+    out = {}
+    ct = ColorType.CMYK_AS_YCCK
+    img = np.load(npy, mmap_mode="r")
+    w = h = CONFIG5
+    mesh = make_mesh("cpu", 1)
+    for key, optimized in (("a", False), ("d", True)):
+        enc = ShardedEncoder(90, mesh, device=dev)
+        enc.set_sampling_factor(SamplingFactor.F_2_2)
+        enc.set_optimized_huffman_tables(optimized)
+        out[key] = shard_runs(enc, [img], w, h, ct)
+
+    # (e) BASELINE config 1 over a (2, 2) mesh: 8 images a batch coordinate.
+    n, w1, h1 = BASELINE1
+    imgs = [make_rgb(w1, h1, seed=i) for i in range(n)]
+    enc = ShardedEncoder(90, make_mesh("cpu", 2), device=dev)
+    files, wall, launches, peak, st = shard_encode(enc, imgs, w1, h1,
+                                                   ColorType.RGB)
+    out["e"] = shard_record(files, wall, launches, peak, st, enc)
+    if dist_rank() == 0:
+        out["e"]["want"] = [Encoder(90, device=dev).encode(im, w1, h1,
+                                                           ColorType.RGB)
+                            for im in imgs]
+        out["e"]["files"] = files
+    out["f"] = dryrun_multichip(dev)
+    return out
+
+
+def shard_runs(enc, images, w, h, ct):
+    """Three encodes on this rank: the first (cold), a warm one with its
+    stages (the record), and a third under :func:`count_syncs`; each one's
+    files' sha256 in "sha_runs"."""
+    first = shard_record(*shard_encode(enc, images, w, h, ct), enc)
+    rec = shard_record(*shard_encode(enc, images, w, h, ct), enc)
+    (files, wall, _, _, _), n, where = count_syncs(
+        lambda: shard_encode(enc, images, w, h, ct, stages=False))
+    third = shard_record(files, wall, {}, 0, None, enc)
+    rec.update(first=first, syncs=(n, where), third_wall_s=wall,
+               sha_runs=[first["sha256"], rec["sha256"], third["sha256"]])
+    return rec
+
+
+def dist_rank():
+    import torch.distributed as dist
+
+    return dist.get_rank()
+
+
+def phase11_nccl_rank():
+    """Phase 11 (g) on a one-rank NCCL mesh on "cuda": the interleaved
+    flagship through ``ShardedEncoder``."""
+    from tpuenc_torch import ColorType
+    from tpuenc_torch.shard.encode import ShardedEncoder
+    from tpuenc_torch.shard.mesh import make_mesh
+
+    enc = ShardedEncoder(90, make_mesh("cuda", 1), device="cuda")
+    rgb = make_rgb(FLAGSHIP_W, FLAGSHIP_H)
+    rec = shard_runs(enc, [rgb], FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB)
+    rec["file"] = enc.encode(rgb, FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB)
+    return rec
+
+
+def print_shard_ranks(label, recs, mp):
+    """Each rank's line of a phase 11 case."""
+    for r, rec in enumerate(recs):
+        st = rec["stages"]
+        print(f"    rank {r}: wall {rec['wall_s'] * 1e3:.1f} ms, rung "
+              f"{rec['rung']}, peak device memory {rec['peak'] / 2**20:.1f} "
+              f"MiB; stripe upload {st.get('upload', 0):.3f} ms; device "
+              f"(events) coefficients {st.get('coefficients', 0):.3f}, "
+              f"histograms {st.get('histograms', 0):.3f}, pack "
+              f"{st.get('pack', 0):.3f} ms in {rec['calls'].get('pack', 0)} "
+              f"call(s) (an image a rung); collectives (host clock) tails "
+              f"{st.get('tails', 0):.3f}, histograms {st.get('reduce', 0):.3f}, "
+              f"ladder flags {st.get('ladder', 0):.3f}, gather "
+              f"{st.get('gather', 0):.3f} ms; host assembly "
+              f"{st.get('assembly', 0):.3f} ms")
+    walls = [rec["wall_s"] for rec in recs]
+    print(f"    {label} wall, slowest rank: {max(walls) * 1e3:.1f} ms = "
+          f"{mp / max(walls):.1f} MP/s (ranks share one card: no scaling "
+          f"figure)")
+    if "first" in recs[0]:
+        print(f"    {label} per rank: the first (cold) encode's wall "
+              + ", ".join(f"{rec['first']['wall_s'] * 1e3:.1f}" for rec in recs)
+              + " ms, a third's " + ", ".join(f"{rec['third_wall_s'] * 1e3:.1f}"
+                                              for rec in recs)
+              + f" ms with {[rec['syncs'][0] for rec in recs]} synchronizing "
+              f"calls (sync debug mode \"warn\"; one is the harness's "
+              f"torch.cuda.synchronize), rank 0's at {recs[0]['syncs'][1]}")
+
+
+def sum_launches(*launch_dicts):
+    total = {}
+    for d in launch_dicts:
+        for k, v in d.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_sharded(dev, flagship_bytes, config5):
+    """Phase 11: ``ShardedEncoder`` over ranks: BASELINE config 5 over a
+    (1, 4) gloo mesh on cuda:0 ((a) default, (d) optimized tables),
+    BASELINE config 1 over a (2, 2) mesh (e), the dryrun twin (f), and the
+    flagship over a one-rank NCCL mesh (g); then the kernels at the
+    stripes' shapes against their plain versions.  Returns ({"sharded":
+    launches}, kernel results)."""
+    import hashlib
+    import tempfile
+
+    from tpuenc_torch.testing.dist import launch
+
+    w = h = CONFIG5
+    mp = w * h / 1e6
+    tmp = tempfile.mkdtemp(prefix="tpuenc-phase11-")
+    npy = os.path.join(tmp, "config5.npy")
+    t0 = time.perf_counter()
+    np.save(npy, config5["img"])
+    print(f"  phase 9's input written to {npy} in "
+          f"{time.perf_counter() - t0:.2f} s; {SHARD_RANKS} gloo ranks, each "
+          f"computing on cuda:0")
+    torch.cuda.empty_cache()
+    try:
+        t0 = time.perf_counter()
+        ranks = launch(phase11_rank, SHARD_RANKS, (npy,), cuda_device=0,
+                       timeout=600)
+        print(f"  the four ranks ran in {time.perf_counter() - t0:.2f} s "
+              f"(spawn and process group included)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    required = ["fdct_quantize", "pack_blocks", "merge_chunks", "concat_rows"]
+    absent = ["pack_acbands", "fused_sample_pack", "hist_sym"]
+    counted_runs = []
+    for key, title in (("a", "(a) config 5, default tables"),
+                       ("d", "(d) config 5, optimized tables")):
+        recs = [r[key] for r in ranks]
+        want_len, want_sha = config5[key]
+        print(f"  {title}: path {recs[0]['path']}, {recs[0]['bytes'][0]} "
+              f"bytes, rung {recs[0]['rung']}")
+        for r, rec in enumerate(recs):
+            if rec["path"] != "sharded-general":
+                raise AssertionError(f"{key}: rank {r} ran on {rec['path']}")
+            for (sha,) in rec["sha_runs"]:
+                if sha != want_sha or rec["bytes"][0] != want_len:
+                    raise AssertionError(f"{key}: rank {r}'s file differs "
+                                         f"from phase 9 ({key})'s")
+            L = rec["launches"]
+            packs = rec["calls"]["pack"]
+            scans = 1 if key == "a" else 4
+            if L["fdct_quantize"] != 4 or L["pack_blocks"] != packs * scans \
+                    or L["hist_count"] != (0 if key == "a" else 4):
+                raise AssertionError(f"{key}: rank {r} launches {L}")
+            check_launches(L, required + (["hist_count"] if key == "d" else []),
+                           absent + (["hist_count"] if key == "a" else []))
+            counted_runs.append(L)
+        print(f"    == phase 9 ({key})'s {want_len} bytes (sha256) on every "
+              f"rank, in each of three encodes; per-rank launches of the "
+              f"second {recs[0]['launches']}; the second, warm, per rank:")
+        print_shard_ranks(f"({key})", recs, mp)
+        if key == "d":
+            for r, rec in enumerate(recs):
+                if not np.array_equal(rec["hists"][0], config5["d_hists"]):
+                    raise AssertionError(f"(d) rank {r}'s reduced histograms "
+                                         f"differ from the single device's")
+            print("    the stripes' histograms, reduced, == the single-device "
+                  "histograms of the image (phase 9 (d))")
+
+    recs = [r["e"] for r in ranks]
+    e = ranks[0]["e"]
+    want = [hashlib.sha256(f).hexdigest() for f in e["want"]]
+    if any(rec["sha256"] != want or rec["path"] != "sharded-general"
+           for rec in recs):
+        raise AssertionError("(e) a file differs from encode()'s")
+    for r, rec in enumerate(recs):
+        check_launches(rec["launches"], required, absent + ["hist_count"])
+        counted_runs.append(rec["launches"])
+    n, w1, h1 = BASELINE1
+    print(f"  (e) BASELINE config 1, {n} x {w1}x{h1}, (2, 2) mesh: path "
+          f"{e['path']}, every rank's {n} files == Encoder(90, "
+          f"device=\"cuda\").encode's ({sum(e['bytes'])} bytes)")
+    print_shard_ranks("(e)", recs, n * w1 * h1 / 1e6)
+    if any(r["f"] != ranks[0]["f"] for r in ranks):
+        raise AssertionError("(f) the ranks' dryruns differ")
+    print(f"  (f) dryrun_multichip on 4 ranks: {ranks[0]['f']}")
+
+    g = launch(phase11_nccl_rank, 1, backend="nccl", cuda_device=0,
+               timeout=300)[0]
+    if g["file"] != flagship_bytes or g["path"] != "sharded-general":
+        raise AssertionError("(g) the NCCL flagship differs from phase 5's")
+    check_launches(g["launches"], required, absent + ["hist_count"])
+    counted_runs.append(g["launches"])
+    if any(sha != [hashlib.sha256(flagship_bytes).hexdigest()]
+           for sha in g["sha_runs"]):
+        raise AssertionError("(g) an NCCL encode differs from phase 5's")
+    print(f"  (g) one-rank NCCL mesh on \"cuda\": the flagship == phase 5's "
+          f"{len(g['file'])} bytes in each of four encodes, rung {g['rung']}; "
+          f"the second, warm:")
+    print_shard_ranks("(g)", [g], FLAGSHIP_W * FLAGSHIP_H / 1e6)
+
+    launches = sum_launches(*counted_runs)
+    check_launches(launches, required + ["fold_rows", "hist_count"], absent)
+    return ({"sharded": launches},
+            shard_kernel_checks(dev, config5["img"], ranks[0]["a"]["rung"],
+                                ranks[0]["d"]["rung"]))
+
+
+def shard_kernel_checks(dev, img, rung, rung_d):
+    """Phase 11's kernels at the stripes' shapes against their plain
+    versions, as phase 3 holds them: K1 on a stripe's Y blocks; K2 on
+    stripe 1's MCU stream, its DC chain continued from stripe 0's tail,
+    then K3, K4 where the merge folds, and K5, at (a)'s rung; K7 on
+    stripe 1's Y stream, and K2-K5 on it as (d)'s Y scan packs it, at
+    (d)'s rung (with the default tables)."""
+    from tpuenc_torch import ColorType
+    from tpuenc_torch.entropy import device_encode as de
+    from tpuenc_torch.entropy import pallas_hist as ph
+    from tpuenc_torch.entropy import pallas_pack as pk
+    from tpuenc_torch.kernels import pipeline
+    from tpuenc_torch.shard import stripes
+
+    ct = ColorType.CMYK_AS_YCCK
+    results = {}
+    enc = config5_encoder(dev)
+    config = enc._config()
+    params = enc._default_tables(config)[2]
+    geo = stripes.stripe_geometry(CONFIG5, CONFIG5, ct, config, SHARD_RANKS)
+    rows = stripes.stripe_pixel_rows(geo)
+    px0 = stripes.pad_stripe([img], geo, 0, dev)[0]
+    px1 = stripes.pad_stripe([img], geo, 1, dev)[0]
+    y = config5_chunk_y(dev, px1)
+    print(f"  kernels at the stripes' shapes: K1 on a stripe's Y blocks, "
+          f"{y.shape[1]}")
+    check_kernel(results, *k1_case("K1 fdct_quantize sharded stripe", y,
+                                   params), reps=5)
+    del y
+    (mcu0,) = pipeline.fn_cm(px0, CONFIG5, rows, ct, config,
+                             params.reciprocals, params.corrections)
+    (mcu1,) = pipeline.fn_cm(px1, CONFIG5, rows, ct, config,
+                             params.reciprocals, params.corrections)
+    _, ((_, spec, _),), _ = de._plan(CONFIG5, CONFIG5, ct, config)
+    pat = len(spec.dc_tab_pattern)
+    dcdiff = pk.dc_diffs_from_dc(mcu1[0], spec, prev_tail=mcu0[0, -pat:],
+                                 global_offset=mcu0.shape[1])
+    print(f"  stripe 1: {mcu1.shape[1]} blocks at offset {mcu0.shape[1]}, "
+          f"its DC chain from stripe 0's tail, rung {rung}")
+    for case in pack_merge_cases(params, spec, mcu1, rung, "sharded stripe",
+                                 dcdiff=dcdiff, valid=mcu1.shape[1]):
+        check_kernel(results, *case, reps=5)
+    del mcu0, mcu1, dcdiff
+    config_d = config5_encoder(dev, optimized=True)._config()
+    luma = pipeline.fn_cm(px1, CONFIG5, rows, ct, config_d, params.reciprocals,
+                          params.corrections)[0].contiguous()
+    print(f"  K7 on a stripe's Y stream: {luma.shape[1]} blocks, band (1, 64)")
+    check_kernel(results, "K7 hist_count sharded stripe",
+                 lambda: ph.hist_count(luma, [(1, 64)]),
+                 lambda: ph.hist_count_ref(luma, [(1, 64)]), nbytes(luma),
+                 reps=5)
+    spec_y = de._plan(CONFIG5, CONFIG5, ct, config_d)[1][0][1]
+    prev = pipeline.fn_cm(px0, CONFIG5, rows, ct, config_d, params.reciprocals,
+                          params.corrections)[0][0, -1:]
+    dcdiff = pk.dc_diffs_from_dc(luma[0], spec_y, prev_tail=prev,
+                                 global_offset=luma.shape[1])
+    print(f"  (d)'s Y scan of stripe 1: {luma.shape[1]} blocks, rung {rung_d}")
+    for case in pack_merge_cases(params, spec_y, luma, rung_d,
+                                 "sharded stripe (d) Y", dcdiff=dcdiff,
+                                 valid=luma.shape[1]):
+        check_kernel(results, *case, reps=5)
+    return results
+
+
 KERNELS = [
     # (name, counter key, results key, source, replaces)
     ("K1 fdct_quantize", "fdct_quantize", "K1 fdct_quantize",
@@ -2265,6 +2698,7 @@ def main():
     sys.stdout.reconfigure(line_buffering=True)
     dev = torch.device("cuda:0")
     flagship = {"finish": {}}
+    config5 = {}
 
     def phase_5():
         (launches, flagship["bytes"], flagship["rung"],
@@ -2290,10 +2724,14 @@ def main():
               ("9. bounded memory and streaming (BASELINE config 5, "
                "16384x16384 YCCK)",
                lambda: phase_config5(dev, flagship["bytes"],
-                                     flagship["progressive"])),
+                                     flagship["progressive"], config5)),
               ("10. the device finish beside the host finish on the "
                "flagship routes, the fixtures and near the block limit",
-               lambda: phase_device_finish(dev, flagship))]
+               lambda: phase_device_finish(dev, flagship)),
+              ("11. striped encode over ranks (BASELINE config 5 over 4 "
+               "gloo ranks on cuda:0, config 1 over (2, 2), the dryrun "
+               "twin, a one-rank NCCL mesh)",
+               lambda: phase_sharded(dev, flagship["bytes"], config5))]
     out = {}
     for title, fn in phases:
         print(f"== {title}")
@@ -2304,7 +2742,9 @@ def main():
         print(f"   ({time.perf_counter() - t0:.2f} s)")
     batch_paths, batch_results = out[phases[7][0]]
     config5_paths, config5_results = out[phases[8][0]]
-    results = {**out[phases[2][0]], **batch_results, **config5_results}
+    sharded_paths, sharded_results = out[phases[10][0]]
+    results = {**out[phases[2][0]], **batch_results, **config5_results,
+               **sharded_results}
     paths = {"interleaved": out[phases[4][0]],
              "progressive_optimized": out[phases[5][0]],
              "interleaved_fused": out[phases[6][0]],
@@ -2315,6 +2755,8 @@ def main():
         r = results[key]
         cases = {k: v for k, v in results.items() if k.startswith(name)}
         by_path = {p: n[counter] for p, n in paths.items() if n[counter]}
+        # Phase 11's ranks, summed: every row names the path, 0 included.
+        by_path["sharded"] = sharded_paths["sharded"][counter]
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -2328,14 +2770,15 @@ def main():
             "bound_ms": r["bound"], "bound_by": "bytes",
             # No single PyTorch call computes any of these functions.
             "library_ms": None,
-            "path": "+".join(by_path), "launches_by_path": by_path,
+            "path": "+".join(p for p, n in by_path.items() if n),
+            "launches_by_path": by_path,
             # Every shape the kernel was held against its plain version
             # at (phase 3's, the batches' of phase 8 and phase 9's).
             "checks": [{"case": k, "max_abs_err": v["err"], "ms": v["ms"],
                         "device_ms": v["device_ms"], "plain_ms": v["plain_ms"],
                         "bound_ms": v["bound"]} for k, v in cases.items()],
         }
-        if not by_path:  # K9: no encode path runs it (tpuenc's tests only)
+        if not any(by_path.values()):  # K9: tpuenc's tests only
             entry.update(launches=tests_only[counter], path="tests only")
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))

@@ -132,7 +132,8 @@ def test_pack_rows_count_every_scan():
 def test_import_leaves_out_jax():
     """Importing the port and encoding (split and fused, each through the
     device finish, through the chunked path with the limit forced down,
-    and streamed) loads neither jax nor tpuenc."""
+    and streamed), and importing the striped encode (``tpuenc_torch.shard``)
+    and its launcher, loads neither jax nor tpuenc."""
     code = (
         "import sys, numpy as np, tpuenc_torch as t\n"
         "from tpuenc_torch import api\n"
@@ -145,6 +146,8 @@ def test_import_leaves_out_jax():
         "e.encode(px, 8, 8, t.ColorType.RGB)\n"
         "assert e.last_encode_path == 'device-chunked', e.last_encode_path\n"
         "b''.join(e.encode_stream(px, 8, 8, t.ColorType.RGB))\n"
+        "import tpuenc_torch.shard.encode, tpuenc_torch.shard.dryrun\n"
+        "import tpuenc_torch.testing.dist, tpuenc_torch.testing.shard_cases\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'tpuenc')]\n"
         "assert not bad, bad\n"
     )

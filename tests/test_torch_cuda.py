@@ -1066,3 +1066,49 @@ def test_all_ff_stream_on_cuda(dev):
                                         bit_offset=int(bits[:s].sum()))
         s += n
     assert got["cpu"][0] == host
+
+
+# The striped encode (tpuenc_torch.shard) over 2 gloo ranks, each
+# computing on cuda:0: an interleaved case and an optimized one.
+SHARD_CASES = [
+    dict(name="interleaved", kind="encode", quality=85, settings=[], w=256,
+         h=512, color_type="RGB", seeds=[0]),
+    dict(name="optimized", kind="encode", quality=85,
+         settings=[("set_optimized_huffman_tables", True)], w=256, h=512,
+         color_type="RGB", seeds=[1]),
+]
+
+
+@pytest.fixture(scope="module")
+def shard_ranks():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    from tpuenc_torch.testing.dist import launch
+    from tpuenc_torch.testing.shard_cases import run_cases
+
+    return launch(run_cases, 2, (1, SHARD_CASES, "cuda:0"), cuda_device=0,
+                  timeout=300)
+
+
+@pytest.mark.parametrize("case", SHARD_CASES, ids=lambda c: c["name"])
+def test_sharded_encode_on_cuda(dev, shard_ranks, case):
+    """Each rank's file equals ``Encoder(device="cuda")``'s; each rank
+    launched K1, K2, K3 and K5 (and K7 with optimized tables), and
+    neither K6 nor K8."""
+    from tpuenc_torch import ColorType, Encoder
+    from tpuenc_torch.testing.shard_cases import apply_settings, case_images
+
+    enc = Encoder(case["quality"], device=dev)
+    apply_settings(enc, case["settings"])
+    (image,) = case_images(case)
+    want = enc.encode(image, case["w"], case["h"], ColorType.RGB)
+    optimized = bool(case["settings"])
+    for result in shard_ranks:
+        (got,), path, _, launches = result[case["name"]]
+        assert got == want and path == "sharded-general"
+        for k in ("fdct_quantize", "pack_blocks", "merge_chunks",
+                  "concat_rows"):
+            assert launches[k] > 0, k
+        assert (launches["hist_count"] > 0) == optimized
+        assert launches["pack_acbands"] == 0
+        assert launches["fused_sample_pack"] == 0

@@ -11,9 +11,9 @@ pass reads the same blocks (encoder.rs:1086-1200).  On the device that is:
    component's blocks to a device store, int16 (64, B) coefficient-major
    (128 bytes a block), padded to the component's pack chunk.  The
    optimized-table modes count each chunk's symbols there too (K7,
-   ``entropy.device.scan_histograms``), summed on the device with no sync
-   per chunk; then the DC counts are corrected at the chunk boundaries and
-   the host builds the K.2 tables.
+   ``entropy.device.scan_histograms``, each component's DC chain continued
+   from the store's block before the chunk), summed on the device with no
+   sync per chunk; then the host builds the K.2 tables.
 2. **Pack.**  Each scan of the plan packs its store in chunks of
    ``pack_chunk`` blocks (``chunked.pack_chunks``: P1-P4 with the DC
    predecessor read from the store, the padding masked, lookahead one),
@@ -26,7 +26,6 @@ from __future__ import annotations
 
 from typing import List
 
-import numpy as np
 import torch
 
 from ..core.types import ColorType, EncoderConfig
@@ -45,22 +44,6 @@ from .pallas_pack import dc_diffs_from_dc
 # Blocks per pack chunk: the pack's transients are about 1 KB a block, so
 # 1M blocks keeps them near 1 GB.
 PACK_CHUNK_BLOCKS = 1 << 20
-
-
-def _correct_dc_counts(hist: np.ndarray, stores, starts, components) -> None:
-    """Each chunk's DC histogram counted its first block of each component
-    against predecessor 0 (``scan_histograms`` sees one chunk); the
-    reference chains the differences over the whole component
-    (encoder.rs:1100-1117).  Move those blocks, one per later chunk and
-    component, to their true bins, read from the store."""
-    for c, comp in enumerate(components):
-        idx = torch.as_tensor([s[c] for s in starts],
-                              device=stores[c].device)
-        now = stores[c][0, idx].cpu().numpy().astype(np.int64)
-        prev = stores[c][0, idx - 1].cpu().numpy().astype(np.int64)
-        for v, p in zip(now.tolist(), prev.tolist()):
-            hist[comp.dc_huffman_table, 0, abs(v).bit_length()] -= 1
-            hist[comp.dc_huffman_table, 0, abs(v - p).bit_length()] += 1
 
 
 def encode_multipass_chunked(pixels, width: int, height: int,
@@ -101,7 +84,6 @@ def encode_multipass_chunked(pixels, width: int, height: int,
                           device=device)
               for b, pc in zip(counts, pack_chunks_of)]
     offsets = [0] * len(components)
-    starts = []  # each later chunk's first block index, per component
     hist = None
     chunk_mcu_rows = min(chunk_mcu_rows, num_rows)
     for ci in range(-(-num_rows // chunk_mcu_rows)):
@@ -112,14 +94,17 @@ def encode_multipass_chunked(pixels, width: int, height: int,
         px = read_rows(pixels, y0, n, width, color_type, device)
         streams = fn_cm(px, width, n, color_type, config, params.reciprocals,
                         params.corrections)
-        if ci > 0:
-            starts.append(list(offsets))
+        # The DC before each component's chunk, a view into the store: the
+        # reference chains the counted differences over the whole
+        # component (encoder.rs:1100-1117).
+        dc_prev = ([store[0, o - 1] for store, o in zip(stores, offsets)]
+                   if ci > 0 else None)
         for c, s in enumerate(streams):
             stores[c][:, offsets[c]:offsets[c] + s.shape[1]] = s
             offsets[c] += s.shape[1]
         if config.optimize_huffman_table:
             counted = scan_histograms(streams, components,
-                                      config.progressive_scans)
+                                      config.progressive_scans, dc_prev)
             hist = counted if hist is None else hist + counted
     if tuple(offsets) != tuple(counts):
         raise RuntimeError(f"stored {offsets} blocks, want {counts}")
@@ -127,8 +112,6 @@ def encode_multipass_chunked(pixels, width: int, height: int,
     # ----- The K.2 tables from the summed counts -----
     if config.optimize_huffman_table:
         hist = hist.cpu().numpy()
-        if starts:
-            _correct_dc_counts(hist, stores, starts, components)
         for i, pair in enumerate(tables_from_histograms(
                 [(h[0], h[1]) for h in hist])):
             huffman[i] = list(pair)

@@ -62,15 +62,17 @@ def ac_histogram(blocks, start: int, end: int):
     return _fold(joint, zrl.sum(), eob.sum())
 
 
-def dc_histogram(blocks):
+def dc_histogram(blocks, prev0=None):
     """257-bin DC size histogram (int64) over one component stream.  The
     DC differences chain over the whole stream with no restart reset
     (encoder.rs:1100-1117), although the scan's own differences do
-    reset."""
+    reset.  ``prev0``: the DC before the stream's first block, where the
+    stream continues a longer one (a stripe's, ``shard.stripes``); 0 by
+    default."""
     dc = blocks[0].to(torch.int64)
-    prev = torch.cat([torch.zeros(1, dtype=torch.int64, device=dc.device),
-                      dc[:-1]])
-    sizes = bit_length(dc - prev)
+    first = (torch.zeros(1, dtype=torch.int64, device=dc.device)
+             if prev0 is None else prev0.to(torch.int64).reshape(1))
+    sizes = bit_length(dc - torch.cat([first, dc])[:-1])
     # A compare-and-sum over the 17 categories: no device sync, unlike
     # torch.bincount.
     bins = torch.arange(17, device=dc.device)
@@ -79,11 +81,13 @@ def dc_histogram(blocks):
 
 
 def scan_histograms(comp_streams: Sequence, components,
-                    progressive_scans: Optional[int]):
+                    progressive_scans: Optional[int], dc_prev=None):
     """Per-table (dc, ac) histograms on the streams' device, int64 (T, 2,
     257) with T = min(components, 2): ``huffopt.build_histograms`` without
     the reserved-symbol seed, which the host adds once.  Every component's
-    AC bands go through K7 together, at most 8 bands per launch."""
+    AC bands go through K7 together, at most 8 bands per launch; a stream
+    of no blocks launches nothing.  ``dc_prev``: per component, the DC
+    before its stream's first block (:func:`dc_histogram`'s ``prev0``)."""
     bands = (progressive_bands(progressive_scans)
              if progressive_scans is not None else [(1, 64)])
     # Empty bands ([1, 1)) have no mass; the other bands' raw counts add
@@ -92,10 +96,11 @@ def scan_histograms(comp_streams: Sequence, components,
     n_tables = min(len(components), 2)
     dev = comp_streams[0].device
     out = torch.zeros((n_tables, 2, 257), dtype=torch.int64, device=dev)
-    for comp, stream in zip(components, comp_streams):
+    for c, (comp, stream) in enumerate(zip(components, comp_streams)):
         if comp.dc_huffman_table < n_tables:
-            out[comp.dc_huffman_table, 0] += dc_histogram(stream)
-        if comp.ac_huffman_table < n_tables and live:
+            out[comp.dc_huffman_table, 0] += dc_histogram(
+                stream, None if dc_prev is None else dc_prev[c])
+        if comp.ac_huffman_table < n_tables and live and stream.shape[1]:
             stream = stream.contiguous()
             raw = sum(hist_count(stream, live[k:k + 8]).sum(0, dtype=torch.int64)
                       for k in range(0, len(live), 8))
