@@ -117,10 +117,19 @@ Phases, each printing its own lines and its wall seconds:
    ``encode``'s;
    (f) the port's ``dryrun_multichip`` on the four ranks; (g) the
    interleaved flagship over a one-rank NCCL mesh on "cuda", equal to
-   phase 5's bytes; then K1, K2 (stripe 1, its DC chain from stripe 0's
-   tail), K3, K4, K5 and K7 at the stripes' shapes against their plain
-   versions, as phase 3.  Four ranks share one card: no figure of phase
-   11 is a scaling figure.
+   phase 5's bytes; (h) config 5 (a) over a (1, 2) gloo mesh, two ranks on
+   cuda:0, a 16384x8192 stripe of 5,242,880 blocks each (past the
+   whole-image limits), each rank's file equal to phase 9 (a)'s, with (a)'s
+   per-rank records and the counts of the kept rung; (i) on (e)'s ranks,
+   what ``ShardedEncoder`` inherits from ``Encoder``: ``encode_batch`` of 3
+   config-1 images (``Encoder.encode_batch``'s files and route),
+   ``encode_image`` (RGB planes) and ``encode_stream`` of the flagship
+   (phase 5's bytes), and ``encode_batch_sharded`` of 4 config-1 images
+   (``encode``'s files); then K1, K2 (stripe 1, its DC chain from stripe
+   0's tail), K3, K4, K5 and K7 at the (1, 4) stripes' shapes, and K1, K2
+   and K3-K5 at (h)'s, against their plain versions, as phase 3, with
+   (h)'s counts beside their widths (int32 or int64) and headroom.  The
+   ranks share one card: no figure of phase 11 is a scaling figure.
 
 It prints a JSON line of the kernels (with every shape each was checked
 at), the card's name and power limit, and last ``{"ok": true, "device":
@@ -1344,13 +1353,18 @@ def batch_stage_times(dev, enc, imgs, w, h):
 
 
 def pack_merge_cases(params, spec, stream, budget, label, dcdiff=None,
-                     valid=None):
+                     valid=None, widths=None):
     """K2, K3, K4 (where the merge plan folds) and K5 on ``stream`` as
     ``_pack_scans_v2`` runs them at ``budget``, or as ``device_scan_pack``
     runs them on a chunk given its mid-stream ``dcdiff`` and ``valid``
     blocks (the strings past it zeroed before the merge): yields ``(key,
     kernel, plain, read_bytes)`` in order, each case's inputs made by the
-    kernel of the case before it."""
+    kernel of the case before it.  Into ``widths``, where given: the
+    largest value of each count the kernels pass on, with its width."""
+    def keep(key, value, width="int32"):
+        if widths is not None:
+            widths[key] = (int(value), width)
+
     from tpuenc_torch.entropy import pallas_pack as pk
 
     Bp = -(-stream.shape[1] // 512) * 512
@@ -1363,15 +1377,17 @@ def pack_merge_cases(params, spec, stream, budget, label, dcdiff=None,
         nbytes(stream, dcdiff, params.dc, params.ac)
     words, lens, _ = pk.pack_blocks(*args)
     if valid is not None:
-        keep = torch.arange(Bp, device=lens.device) < valid
-        lens = torch.where(keep, lens, 0)
-        words = torch.where(keep[:, None], words, 0)
+        live = torch.arange(Bp, device=lens.device) < valid
+        lens = torch.where(live, lens, 0)
+        words = torch.where(live[:, None], words, 0)
+    keep("K2 lens: one block's bits", lens.max())
     n_sub = 128
     chunk, n2, caps, caps_f = pk.merge_plan(Bp, words.shape[1], budget, n_sub)
     margs = (words, lens, chunk, n_sub * n2, caps, caps[-1])
     yield f"K3 merge_chunks {label}", lambda: pk.merge_chunks(*margs), \
         lambda: pk.merge_rows_ref(*margs), string_bytes(lens) + nbytes(lens)
     rows, bits, _ = pk.merge_chunks(*margs)
+    keep("K3 out_len: one P2 row's bits (K5's bits without P3)", bits.max())
     cap = caps[-1]
     if caps_f is not None:
         fargs = (rows, bits, n2, n_sub, caps_f, caps_f[-1])
@@ -1379,8 +1395,10 @@ def pack_merge_cases(params, spec, stream, budget, label, dcdiff=None,
             lambda: pk.merge_rows_ref(*fargs), \
             string_bytes(bits) + nbytes(bits)
         rows, bits, _ = pk.fold_rows(*fargs)
+        keep("K4 out_len: one P3 row's bits (K5's bits)", bits.max())
         cap = caps_f[-1]
     pos = torch.cumsum(bits.to(torch.int64), 0) - bits
+    keep("K5 pos: the stripe's scan bits", pos[-1] + bits[-1], "int64")
     cargs = (rows, pos, bits, -(-(rows.shape[0] * cap + cap + 256) // 128) * 128)
     yield f"K5 concat_rows {label}", lambda: pk.concat_rows(*cargs), \
         lambda: pk.concat_rows_ref(*cargs), string_bytes(bits) + nbytes(pos, bits)
@@ -2307,6 +2325,7 @@ class ShardStages:
         self.events = {}
         self.calls = {}
         self.hists = None
+        self.packs = []  # each pack call's StripeScans (the last rung last)
 
     def __enter__(self):
         for (obj, name, key, kind), real in zip(self.targets, self.real):
@@ -2323,6 +2342,8 @@ class ShardStages:
                 b = torch.cuda.Event(enable_timing=True)
                 b.record()
                 self.events.setdefault(key, []).append((a, b))
+                if key == "pack":
+                    self.packs.append(out)
                 return out
             t0 = time.perf_counter()
             out = real(*args, **kwargs)
@@ -2344,6 +2365,19 @@ class ShardStages:
         for key, pairs in self.events.items():
             out[key] = sum(a.elapsed_time(b) for a, b in pairs)
         return out
+
+    def widths(self):
+        """The counts of this rank's last pack (the rung kept): the most
+        bits of one block (int32 ``lens``), of one restart segment's part
+        and of the stripe's part of one scan (both int64)."""
+        scans = self.packs[-1]
+
+        def most(ts):
+            return max((int(t.max()) for t in ts if t.numel()), default=0)
+
+        return {"block_bits": most(s.lens for s in scans),
+                "segment_bits": most(s.segment_bits for s in scans),
+                "scan_bits": most(s.bits for s in scans)}
 
 
 def count_syncs(run):
@@ -2389,12 +2423,13 @@ def shard_record(files, wall, launches, peak, st, enc, syncs=None):
             "launches": launches, "peak": peak, "path": enc.last_encode_path,
             "rung": enc.last_budget,
             "stages": None if st is None else st.summary(),
+            "widths": None if st is None or not st.packs else st.widths(),
             "calls": None if st is None else st.calls,
             "hists": None if st is None else st.hists, "syncs": syncs}
 
 
 def phase11_rank(npy):
-    """Phase 11 (a), (d), (e) and (f) on one of four gloo ranks, each
+    """Phase 11 (a), (d), (e), (f) and (i) on one of four gloo ranks, each
     computing on cuda:0."""
     from tpuenc_torch import ColorType, Encoder, SamplingFactor
     from tpuenc_torch.shard.dryrun import dryrun_multichip
@@ -2426,7 +2461,68 @@ def phase11_rank(npy):
                             for im in imgs]
         out["e"]["files"] = files
     out["f"] = dryrun_multichip(dev)
+    out["i"] = phase11i(enc, dev)
     return out
+
+
+def phase11i(enc, dev):
+    """Phase 11 (i) on (e)'s (2, 2) ranks: what ``ShardedEncoder`` does
+    beside its striped ``encode_batch``, each call with the launch counts
+    at 0 just before it: ``encode_batch`` of 3 config-1 images (not a
+    multiple of the batch axis: ``Encoder.encode_batch``'s route),
+    ``encode_image`` of the flagship as RGB planes and ``encode_stream`` of
+    it, and ``encode_batch_sharded`` of 4 config-1 images.  Returns each
+    call's files' sha256, route and launches, and on rank 0 the references:
+    ``Encoder.encode_batch`` of the 3 and ``Encoder.encode`` of the 4."""
+    import hashlib
+
+    from tpuenc_torch import ColorType, Encoder, JpegColorType
+    from tpuenc_torch.testing.shard_cases import planes_buffer
+
+    def sha(files):
+        return [hashlib.sha256(f).hexdigest() for f in files]
+
+    _, w1, h1 = BASELINE1
+    rgb = make_rgb(FLAGSHIP_W, FLAGSHIP_H)
+    three = [make_rgb(w1, h1, seed=100 + i) for i in range(3)]
+    four = [make_rgb(w1, h1, seed=200 + i) for i in range(4)]
+    calls = {
+        "batch3": lambda: enc.encode_batch(three, w1, h1, ColorType.RGB),
+        "encode_image": lambda: [enc.encode_image(planes_buffer(
+            rgb, jpeg_color_type=JpegColorType.YCBCR,
+            color_type=ColorType.RGB))],
+        "encode_stream": lambda: [b"".join(enc.encode_stream(
+            rgb, FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB))],
+        "sharded4": lambda: enc.encode_batch_sharded(four, w1, h1,
+                                                     ColorType.RGB),
+    }
+    out = {}
+    for key, call in calls.items():
+        files, launches = counted(call)
+        out[key] = {"sha256": sha(files), "path": enc.last_encode_path,
+                    "launches": launches}
+    if dist_rank() == 0:
+        ref = Encoder(90, device=dev)
+        out["batch3_want"] = {
+            "sha256": sha(ref.encode_batch(three, w1, h1, ColorType.RGB)),
+            "path": ref.last_encode_path}
+        out["sharded4_want"] = {"sha256": sha(
+            [ref.encode(im, w1, h1, ColorType.RGB) for im in four])}
+    return out
+
+
+def phase11h_rank(npy):
+    """Phase 11 (h) on one of two gloo ranks, each computing on cuda:0:
+    BASELINE config 5 (a) over a (1, 2) mesh, a 16384x8192 stripe of
+    5,242,880 blocks a rank, past the whole-image limits."""
+    from tpuenc_torch import ColorType, SamplingFactor
+    from tpuenc_torch.shard.encode import ShardedEncoder
+    from tpuenc_torch.shard.mesh import make_mesh
+
+    enc = ShardedEncoder(90, make_mesh("cpu", 1), device=torch.device("cuda:0"))
+    enc.set_sampling_factor(SamplingFactor.F_2_2)
+    img = np.load(npy, mmap_mode="r")
+    return shard_runs(enc, [img], CONFIG5, CONFIG5, ColorType.CMYK_AS_YCCK)
 
 
 def shard_runs(enc, images, w, h, ct):
@@ -2503,10 +2599,11 @@ def sum_launches(*launch_dicts):
 def phase_sharded(dev, flagship_bytes, config5):
     """Phase 11: ``ShardedEncoder`` over ranks: BASELINE config 5 over a
     (1, 4) gloo mesh on cuda:0 ((a) default, (d) optimized tables),
-    BASELINE config 1 over a (2, 2) mesh (e), the dryrun twin (f), and the
-    flagship over a one-rank NCCL mesh (g); then the kernels at the
-    stripes' shapes against their plain versions.  Returns ({"sharded":
-    launches}, kernel results)."""
+    BASELINE config 1 over a (2, 2) mesh (e), the dryrun twin (f), the
+    inherited entry points on (e)'s ranks (i), the flagship over a
+    one-rank NCCL mesh (g), and config 5 (a) over a (1, 2) mesh (h); then
+    the kernels at the stripes' shapes against their plain versions.
+    Returns ({"sharded": launches}, kernel results)."""
     import hashlib
     import tempfile
 
@@ -2527,6 +2624,11 @@ def phase_sharded(dev, flagship_bytes, config5):
         ranks = launch(phase11_rank, SHARD_RANKS, (npy,), cuda_device=0,
                        timeout=600)
         print(f"  the four ranks ran in {time.perf_counter() - t0:.2f} s "
+              f"(spawn and process group included)")
+        t0 = time.perf_counter()
+        ranks_h = launch(phase11h_rank, 2, (npy,), cuda_device=0,
+                         timeout=600)
+        print(f"  (h)'s two ranks ran in {time.perf_counter() - t0:.2f} s "
               f"(spawn and process group included)")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2584,6 +2686,7 @@ def phase_sharded(dev, flagship_bytes, config5):
     if any(r["f"] != ranks[0]["f"] for r in ranks):
         raise AssertionError("(f) the ranks' dryruns differ")
     print(f"  (f) dryrun_multichip on 4 ranks: {ranks[0]['f']}")
+    counted_runs += check_phase11i([r["i"] for r in ranks], flagship_bytes)
 
     g = launch(phase11_nccl_rank, 1, backend="nccl", cuda_device=0,
                timeout=300)[0]
@@ -2599,20 +2702,101 @@ def phase_sharded(dev, flagship_bytes, config5):
           f"the second, warm:")
     print_shard_ranks("(g)", [g], FLAGSHIP_W * FLAGSHIP_H / 1e6)
 
+    recs = ranks_h
+    want_len, want_sha = config5["a"]
+    for r, rec in enumerate(recs):
+        if rec["path"] != "sharded-general" or any(
+                sha != want_sha for (sha,) in rec["sha_runs"]) \
+                or rec["bytes"][0] != want_len:
+            raise AssertionError(f"(h) rank {r}'s file differs from phase 9 "
+                                 f"(a)'s or ran on {rec['path']}")
+        L = rec["launches"]
+        if L["fdct_quantize"] != 4 or L["pack_blocks"] != rec["calls"]["pack"]:
+            raise AssertionError(f"(h) rank {r} launches {L}")
+        check_launches(L, required, absent + ["hist_count"])
+        counted_runs.append(L)
+    print(f"  (h) config 5 (a) over a (1, 2) mesh, two gloo ranks on cuda:0, "
+          f"a 16384x8192 stripe of 5,242,880 blocks a rank: path "
+          f"{recs[0]['path']}, == phase 9 (a)'s {want_len} bytes (sha256) on "
+          f"both ranks in each of three encodes, rung {recs[0]['rung']}; "
+          f"per-rank launches of the second {recs[0]['launches']}; the "
+          f"second, warm, per rank:")
+    print_shard_ranks("(h)", recs, mp)
+    for r, rec in enumerate(recs):
+        print(f"    rank {r}: the first (cold) encode's peak device memory "
+              f"{rec['first']['peak'] / 2**20:.1f} MiB; the kept rung's "
+              f"counts: {rec['widths']}")
+
     launches = sum_launches(*counted_runs)
     check_launches(launches, required + ["fold_rows", "hist_count"], absent)
-    return ({"sharded": launches},
-            shard_kernel_checks(dev, config5["img"], ranks[0]["a"]["rung"],
-                                ranks[0]["d"]["rung"]))
+    results = shard_kernel_checks(dev, config5["img"], ranks[0]["a"]["rung"],
+                                  ranks[0]["d"]["rung"])
+    widths = {}
+    results.update(shard_kernel_checks(dev, config5["img"], recs[0]["rung"],
+                                       None, n_stripes=2, widths=widths))
+    print_widths(widths, recs)
+    return {"sharded": launches}, results
 
 
-def shard_kernel_checks(dev, img, rung, rung_d):
-    """Phase 11's kernels at the stripes' shapes against their plain
-    versions, as phase 3 holds them: K1 on a stripe's Y blocks; K2 on
-    stripe 1's MCU stream, its DC chain continued from stripe 0's tail,
-    then K3, K4 where the merge folds, and K5, at (a)'s rung; K7 on
-    stripe 1's Y stream, and K2-K5 on it as (d)'s Y scan packs it, at
-    (d)'s rung (with the default tables)."""
+def check_phase11i(recs, flagship_bytes):
+    """Phase 11 (i)'s checks on the four ranks' records: every rank's
+    files equal rank 0's references and phase 5's flagship; returns the
+    calls' launches."""
+    import hashlib
+
+    flagship = [hashlib.sha256(flagship_bytes).hexdigest()]
+    want = {"batch3": (recs[0]["batch3_want"]["sha256"],
+                       recs[0]["batch3_want"]["path"]),
+            "encode_image": (flagship, "device-v2"),
+            "encode_stream": (flagship, "device-chunked-stream"),
+            "sharded4": (recs[0]["sharded4_want"]["sha256"],
+                         "sharded-general")}
+    runs = []
+    for r, rec in enumerate(recs):
+        for key, (sha, path) in want.items():
+            if (rec[key]["sha256"], rec[key]["path"]) != (sha, path):
+                raise AssertionError(f"(i) rank {r}'s {key} differs: "
+                                     f"{rec[key]['path']}, want {path}")
+            check_launches(rec[key]["launches"],
+                           ["fdct_quantize", "pack_blocks", "merge_chunks",
+                            "concat_rows"],
+                           ["pack_acbands", "fused_sample_pack", "hist_sym",
+                            "hist_count"])
+            runs.append(rec[key]["launches"])
+    print(f"  (i) on (e)'s ranks: encode_batch of 3 config-1 images == "
+          f"Encoder.encode_batch's files on its route {want['batch3'][1]}; "
+          f"encode_image (RGB planes) and encode_stream of the flagship == "
+          f"phase 5's {len(flagship_bytes)} bytes; encode_batch_sharded of 4 "
+          f"config-1 images == Encoder.encode's; on every rank")
+    return runs
+
+
+def print_widths(widths, recs):
+    """Phase 11 (h)'s counts: each field's largest value in this run, its
+    width, and 2^31 - 1 over it (the headroom of an int32; where the
+    field is int64, how far an int32 in its place would have been from
+    wrapping)."""
+    rows = dict(widths)
+    for key, width in (("block_bits", "int32"), ("segment_bits", "int64"),
+                       ("scan_bits", "int64")):
+        rows[f"ranks' {key} (StripeScan)"] = (
+            max(rec["widths"][key] for rec in recs), width)
+    print("  (h) counts on the stripe path at the kept rung: largest value, "
+          "width, (2^31 - 1) / value")
+    for key, (value, width) in rows.items():
+        print(f"    {key}: {value} {width} "
+              f"{(2**31 - 1) / max(value, 1):.2f}x")
+
+
+def shard_kernel_checks(dev, img, rung, rung_d, n_stripes=SHARD_RANKS,
+                        widths=None):
+    """Phase 11's kernels at the shapes of config 5's stripes over
+    ``n_stripes`` against their plain versions, as phase 3 holds them: K1
+    on a stripe's Y blocks; K2 on stripe 1's MCU stream, its DC chain
+    continued from stripe 0's tail, then K3, K4 where the merge folds, and
+    K5, at (a)'s ``rung`` (their counts into ``widths``); unless
+    ``rung_d`` is None, K7 on stripe 1's Y stream, and K2-K5 on it as
+    (d)'s Y scan packs it, at (d)'s rung (with the default tables)."""
     from tpuenc_torch import ColorType
     from tpuenc_torch.entropy import device_encode as de
     from tpuenc_torch.entropy import pallas_hist as ph
@@ -2625,15 +2809,17 @@ def shard_kernel_checks(dev, img, rung, rung_d):
     enc = config5_encoder(dev)
     config = enc._config()
     params = enc._default_tables(config)[2]
-    geo = stripes.stripe_geometry(CONFIG5, CONFIG5, ct, config, SHARD_RANKS)
+    label = ("sharded stripe" if n_stripes == SHARD_RANKS
+             else f"sharded stripe (1, {n_stripes})")
+    geo = stripes.stripe_geometry(CONFIG5, CONFIG5, ct, config, n_stripes)
     rows = stripes.stripe_pixel_rows(geo)
     px0 = stripes.pad_stripe([img], geo, 0, dev)[0]
     px1 = stripes.pad_stripe([img], geo, 1, dev)[0]
     y = config5_chunk_y(dev, px1)
-    print(f"  kernels at the stripes' shapes: K1 on a stripe's Y blocks, "
-          f"{y.shape[1]}")
-    check_kernel(results, *k1_case("K1 fdct_quantize sharded stripe", y,
-                                   params), reps=5)
+    print(f"  kernels at the shapes of config 5 over {n_stripes} stripes: "
+          f"K1 on a stripe's Y blocks, {y.shape[1]}")
+    check_kernel(results, *k1_case(f"K1 fdct_quantize {label}", y, params),
+                 reps=5)
     del y
     (mcu0,) = pipeline.fn_cm(px0, CONFIG5, rows, ct, config,
                              params.reciprocals, params.corrections)
@@ -2645,10 +2831,13 @@ def shard_kernel_checks(dev, img, rung, rung_d):
                                  global_offset=mcu0.shape[1])
     print(f"  stripe 1: {mcu1.shape[1]} blocks at offset {mcu0.shape[1]}, "
           f"its DC chain from stripe 0's tail, rung {rung}")
-    for case in pack_merge_cases(params, spec, mcu1, rung, "sharded stripe",
-                                 dcdiff=dcdiff, valid=mcu1.shape[1]):
+    for case in pack_merge_cases(params, spec, mcu1, rung, label,
+                                 dcdiff=dcdiff, valid=mcu1.shape[1],
+                                 widths=widths):
         check_kernel(results, *case, reps=5)
     del mcu0, mcu1, dcdiff
+    if rung_d is None:
+        return results
     config_d = config5_encoder(dev, optimized=True)._config()
     luma = pipeline.fn_cm(px1, CONFIG5, rows, ct, config_d, params.reciprocals,
                           params.corrections)[0].contiguous()
@@ -2730,7 +2919,8 @@ def main():
                lambda: phase_device_finish(dev, flagship)),
               ("11. striped encode over ranks (BASELINE config 5 over 4 "
                "gloo ranks on cuda:0, config 1 over (2, 2), the dryrun "
-               "twin, a one-rank NCCL mesh)",
+               "twin, a one-rank NCCL mesh, config 5 over 2 ranks, the "
+               "inherited entry points)",
                lambda: phase_sharded(dev, flagship["bytes"], config5))]
     out = {}
     for title, fn in phases:

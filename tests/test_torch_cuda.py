@@ -1112,3 +1112,33 @@ def test_sharded_encode_on_cuda(dev, shard_ranks, case):
         assert (launches["hist_count"] > 0) == optimized
         assert launches["pack_acbands"] == 0
         assert launches["fused_sample_pack"] == 0
+
+
+# ShardedEncoder's inherited entry points over a one-rank NCCL mesh.
+NCCL_ENTRY = dict(name="entry", kind="entry", quality=90, settings=[],
+                  w=256, h=512, color_type="RGB", seeds=[2])
+
+
+def test_sharded_entry_points_on_nccl(dev):
+    """``encode_image`` and ``encode_stream`` of a ``ShardedEncoder`` on a
+    one-rank NCCL mesh on cuda:0 equal ``Encoder(device="cuda")``'s bytes,
+    on ``Encoder``'s routes."""
+    from tpuenc_torch import ColorType, Encoder
+    from tpuenc_torch.testing.dist import launch
+    from tpuenc_torch.testing.shard_cases import (
+        case_images,
+        planes_buffer,
+        run_cases,
+    )
+
+    (got,) = launch(run_cases, 1, (1, [NCCL_ENTRY], "cuda:0", "cuda"),
+                    backend="nccl", cuda_device=0, timeout=300)
+    (image,) = case_images(NCCL_ENTRY)
+    w, h = NCCL_ENTRY["w"], NCCL_ENTRY["h"]
+    enc = Encoder(90, device=dev)
+    want = {"encode_image": (enc.encode_image(planes_buffer(image)),
+                             "device-v2"),
+            "encode_stream": (b"".join(enc.encode_stream(image, w, h,
+                                                         ColorType.RGB)),
+                              "device-chunked-stream")}
+    assert got["entry"] == want

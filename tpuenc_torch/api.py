@@ -81,6 +81,17 @@ def _over_limits(width, height, color_type, config) -> bool:
             > DEVICE_PACK_ROWS_LIMIT)
 
 
+def batch_route(n: int, width: int, height: int, color_type: ColorType,
+                config) -> str:
+    """The route of ``Encoder.encode_batch`` for ``n`` images of this size,
+    as ``last_encode_path`` names it: images past the whole-image limits go
+    image by image (``de.PER_IMAGE``), as in ``tpuenc``; any other batch
+    takes ``entropy.device_encode.batch_route``'s."""
+    if _over_limits(width, height, color_type, config):
+        return de.PER_IMAGE
+    return de.batch_route(n, width, height, color_type, config)
+
+
 def _check_dims(width: int, height: int) -> None:
     """Reference dimension domain: non-zero (encoder.rs:521-526) and
     within the u16 range its API types enforce (encoder.rs:443-446)."""
@@ -454,9 +465,7 @@ class Encoder:
         ``images``: an iterable of pixel buffers (bytes or arrays), each
         laid out as for :meth:`encode` and checked as it is.  The route
         is chosen up front from the batch's size, shape and settings
-        (``entropy.device_encode.batch_route``; images past the
-        whole-image limits always go image by image, as in ``tpuenc``) and
-        named in ``last_encode_path``:
+        (:func:`batch_route`) and named in ``last_encode_path``:
 
         * ``"device-batch"``: interleaved, default tables, at most 3M
           blocks, a restart interval (if any) that divides each image's
@@ -482,9 +491,8 @@ class Encoder:
             _check_dims(width, height)
             return []
         config = self._config()
-        route = (de.PER_IMAGE if _over_limits(width, height, color_type, config)
-                 else de.batch_route(len(pixel_arrays), width, height,
-                                     color_type, config))
+        route = batch_route(len(pixel_arrays), width, height, color_type,
+                            config)
         if route == de.PER_IMAGE:
             results, rungs = [], []
             for px in pixel_arrays:

@@ -1,43 +1,53 @@
 """The mesh-sharded end-to-end encode: ``ShardedEncoder``.
 
 Counterpart of ``tpuenc/shard/encode.py``.  Every rank of the mesh
-(``shard.mesh``) calls the same method with the same arguments (SPMD);
-each computes its stripe of its batch coordinate's images on its own
-compute device (``shard.stripes``), and every rank returns every file.
-The images are split over the batch axis in order, k = N / batch per
-coordinate, and the route is chosen up front from their size and count
-and named in ``last_encode_path``:
+(``shard.mesh``) calls the same method with the same arguments (SPMD)
+and gets every file.  ``ShardedEncoder`` is an ``Encoder``: the entry
+points it does not override (``encode_image``, ``encode_stream``) run
+``Encoder``'s paths on this rank's compute device, as ``tpuenc``'s
+inherited ones run on the default device.
 
-* ``"sharded-general"``: MCU-aligned images, a positive multiple of the
-  batch axis.  Each stripe packs its part of every scan of its k images
-  on its device (P1-P4 with the DC chain continued from the stripe before
-  it and the global restart geometry), the ranks agree on the budget rung
-  (one ``all_reduce`` of the overflow flags per rung), the packed bits and
-  segment bit counts are gathered, and every rank joins each image's
-  stripes, realigns and stuffs its segments (``native.realign_segments``)
-  and writes the file.  ``tpuenc`` packs one image per coordinate so
-  (``encode_batch_packed_general``) and gathers the coefficients of more
-  (``encode_batch_sharded``) to pack them on the host; the bytes are the
-  same.
-* anything else raises ``ValueError``, as ``tpuenc`` does for sizes that
-  are not MCU-aligned.
+The striped route, ``"sharded-general"``, takes MCU-aligned images, a
+positive multiple of the batch axis (:meth:`ShardedEncoder.route`).  The
+images are split over the batch axis in order, k = N / batch per
+coordinate; each rank computes its stripe of its coordinate's images on
+its own device (``shard.stripes``) and packs its part of every scan of
+them (P1-P4 with the DC chain continued from the stripe before it and the
+global restart geometry), the ranks agree on the budget rung (one
+``all_reduce`` of the overflow flags per rung), the packed bits and
+segment bit counts are gathered, and every rank joins each image's
+stripes, realigns and stuffs its segments (``native.realign_segments``)
+and writes the file.  A stripe of any size is packed whole: the
+whole-image limits (``api.DEVICE_BLOCK_LIMIT``) send the single-device
+``Encoder`` to its chunked paths, and ``tpuenc``'s striped route does not
+read them either.  Its bit counts do not wrap: the per-block, per-row and
+per-run counts are int32 under the merge caps, which the overflow flag
+holds them to, and every total, offset and segment count is int64.
+
+``tpuenc``'s three striped methods are here with ``tpuenc``'s domains, on
+the one route: ``encode_batch_packed_general`` (one image per batch
+coordinate, else None), ``encode_batch_packed`` (its v1 conditions, else
+None; the v1 packer itself is not ported, the general route gives the
+same bytes) and ``encode_batch_sharded`` (any positive multiple of the
+batch axis, else ``ValueError``).  ``encode_batch`` takes every batch
+that ``Encoder.encode_batch`` takes: the striped route where it accepts
+the batch, else ``Encoder``'s route on this rank's device
+(:meth:`ShardedEncoder.batch_route`).
 
 Optimized Huffman tables come from each image's histograms, counted per
-stripe and summed over the stripe group.  ``tpuenc``'s v1 route
-(``encode_batch_packed``, restart-aligned interleaved scans through the XLA
-log-tree packer) is not ported: the general route gives the same bytes.
+stripe and summed over the stripe group.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from .. import api
-from ..api import Encoder, _over_limits, _validate_pixels
+from ..api import Encoder, _validate_pixels
 from ..core.types import ColorType, init_components
 from ..entropy import device_encode as de
 from ..entropy import native
@@ -50,7 +60,6 @@ from .stripes import (
     general_pack,
     stripe_encode_step,
     stripe_geometry,
-    stripe_pixel_rows,
 )
 
 SHARDED_GENERAL = "sharded-general"
@@ -147,14 +156,6 @@ def _block_counts(layout):
     return list(layout["comp_block_counts"])
 
 
-def _single_device_only(name):
-    def refuse(*args, **kwargs):
-        raise NotImplementedError(
-            f"ShardedEncoder has no {name}: it encodes through encode and "
-            f"encode_batch ({SHARDED_GENERAL!r}); use tpuenc_torch.Encoder")
-    return refuse
-
-
 class ShardedEncoder(Encoder):
     """Encoder whose images are striped over a mesh of ranks.
 
@@ -162,53 +163,128 @@ class ShardedEncoder(Encoder):
     :class:`tpuenc_torch.Encoder`; ``mesh`` from ``shard.mesh.make_mesh``;
     ``device``, the compute device of this rank, explicit as for
     ``Encoder``.  Every rank calls the same methods with the same images
-    and gets every file.  ``encode`` takes one image, ``encode_batch``
-    same-shape images; the route (:meth:`route`) goes to
-    ``last_encode_path``, the budget rung to ``last_budget``.  The
-    single-device entry points (``encode_image``, ``encode_stream``,
-    ``new_file``, ``new_writer``) raise ``NotImplementedError``.
+    and gets every file.  ``encode`` takes one image on the striped route
+    (:meth:`route`), ``encode_batch`` same-shape images on
+    :meth:`batch_route`'s route, named in ``last_encode_path``; the budget
+    rung goes to ``last_budget``.  ``encode_image`` and ``encode_stream``
+    are ``Encoder``'s, on this rank's device.  ``new_file`` and
+    ``new_writer`` raise ``TypeError``, as ``tpuenc``'s do: the sinks have
+    no mesh.
     """
 
     def __init__(self, quality: int, mesh, *, device):
         super().__init__(quality, device=device)
         self._mesh = mesh
 
-    encode_image = _single_device_only("encode_image")
-    encode_stream = _single_device_only("encode_stream")
-    new_file = staticmethod(_single_device_only("new_file"))
-    new_writer = staticmethod(_single_device_only("new_writer"))
+    def _geometry(self, width: int, height: int, color_type: ColorType):
+        """The striped layout of an image of this size on this mesh."""
+        return stripe_geometry(width, height, ColorType(color_type),
+                               self._config(), stripe_counts(self._mesh)[1])
+
+    def _refusal(self, n_images: int, width: int, height: int,
+                 color_type: ColorType) -> Optional[str]:
+        """Why the striped route refuses ``n_images`` images of this size,
+        or None where it takes them."""
+        geo = self._geometry(width, height, color_type)
+        n_b = stripe_counts(self._mesh)[0]
+        mcu_w, mcu_h = 8 * geo["max_h"], 8 * geo["max_v"]
+        if width % mcu_w or height % mcu_h:
+            return ("sharded encode requires MCU-aligned dimensions "
+                    f"(multiples of {mcu_w}x{mcu_h}); got {width}x{height}")
+        if n_images < 1 or n_images % n_b:
+            return (f"batch {n_images} is not a positive multiple of the "
+                    f"mesh batch axis {n_b}")
+        return None
 
     def route(self, n_images: int, width: int, height: int,
               color_type: ColorType) -> str:
-        """The route of ``n_images`` images of this size, chosen up front:
+        """The striped route of ``n_images`` images of this size:
         :data:`SHARDED_GENERAL` for MCU-aligned images, a positive multiple
-        of the batch axis.  Raises ``ValueError`` otherwise, and where one
-        image's stripe is past the whole-image path's limits
-        (``api.DEVICE_BLOCK_LIMIT``, ``api.DEVICE_PACK_ROWS_LIMIT``)."""
-        color_type = ColorType(color_type)
-        config = self._config()
-        n_b, n_s = stripe_counts(self._mesh)
-        geo = stripe_geometry(width, height, color_type, config, n_s)
-        mcu_w, mcu_h = 8 * geo["max_h"], 8 * geo["max_v"]
-        if width % mcu_w or height % mcu_h:
-            raise ValueError(
-                "sharded encode requires MCU-aligned dimensions "
-                f"(multiples of {mcu_w}x{mcu_h}); got {width}x{height}")
-        if _over_limits(geo["pad_w"], stripe_pixel_rows(geo), color_type,
-                        config):
-            raise ValueError(
-                f"a stripe of {geo['pad_w']}x{stripe_pixel_rows(geo)} is past "
-                f"the whole-image limits ({api.DEVICE_BLOCK_LIMIT} blocks, "
-                f"{api.DEVICE_PACK_ROWS_LIMIT} pack rows): use more stripes")
-        if n_images < 1 or n_images % n_b:
-            raise ValueError(f"batch {n_images} is not a positive multiple "
-                             f"of the mesh batch axis {n_b}")
+        of the batch axis, of any size.  Raises ``ValueError`` otherwise,
+        as ``tpuenc``'s ``encode_batch_sharded`` does."""
+        why = self._refusal(n_images, width, height, color_type)
+        if why is not None:
+            raise ValueError(why)
         return SHARDED_GENERAL
+
+    def batch_route(self, n_images: int, width: int, height: int,
+                    color_type: ColorType) -> str:
+        """The route of :meth:`encode_batch`, chosen up front:
+        :data:`SHARDED_GENERAL` where :meth:`route` takes the batch, else
+        ``Encoder.encode_batch``'s (``api.batch_route``: "device-batch" or
+        "device-batch-per-image") on this rank's device, for images that
+        are not MCU-aligned, a batch that is not a multiple of the batch
+        axis, or none."""
+        color_type = ColorType(color_type)
+        if self._refusal(n_images, width, height, color_type) is None:
+            return SHARDED_GENERAL
+        return api.batch_route(n_images, width, height, color_type,
+                               self._config())
 
     def encode(self, data, width: int, height: int,
                color_type: ColorType) -> bytes:
-        """One image over the mesh (``tpuenc/shard/encode.py:79``)."""
-        return self.encode_batch([data], width, height, color_type)[0]
+        """One image over the mesh (``tpuenc/shard/encode.py:79``): the
+        striped route, or its ``ValueError``."""
+        return self.encode_batch_sharded([data], width, height,
+                                         color_type)[0]
+
+    def encode_batch(self, images, width: int, height: int,
+                     color_type: ColorType) -> List[bytes]:
+        """Same-shape images, each file ``Encoder.encode``'s, on
+        :meth:`batch_route`'s route: the striped route, or
+        ``Encoder.encode_batch`` on this rank's device (every rank encodes
+        every image).  A failure inside the route raises."""
+        color_type = ColorType(color_type)
+        pixels = [_validate_pixels(d, width, height, color_type)
+                  for d in images]
+        if self.batch_route(len(pixels), width, height,
+                            color_type) == SHARDED_GENERAL:
+            return self._encode_striped(pixels, width, height, color_type)
+        return super().encode_batch(pixels, width, height, color_type)
+
+    def encode_batch_sharded(self, images, width: int, height: int,
+                             color_type: ColorType) -> List[bytes]:
+        """``tpuenc``'s ``encode_batch_sharded`` (encode.py:372): any
+        positive multiple of the batch axis, MCU-aligned, on the striped
+        route; ``ValueError`` otherwise."""
+        color_type = ColorType(color_type)
+        pixels = [_validate_pixels(d, width, height, color_type)
+                  for d in images]
+        self.route(len(pixels), width, height, color_type)
+        return self._encode_striped(pixels, width, height, color_type)
+
+    def encode_batch_packed_general(self, images, width: int, height: int,
+                                    color_type: ColorType
+                                    ) -> Optional[List[bytes]]:
+        """``tpuenc``'s ``encode_batch_packed_general`` (encode.py:91): the
+        striped route's files for MCU-aligned images, one per batch
+        coordinate; None for any other batch."""
+        images = list(images)
+        if (len(images) != stripe_counts(self._mesh)[0]
+                or self._refusal(len(images), width, height,
+                                 color_type) is not None):
+            return None
+        return self.encode_batch_sharded(images, width, height, color_type)
+
+    def encode_batch_packed(self, images, width: int, height: int,
+                            color_type: ColorType) -> Optional[List[bytes]]:
+        """``tpuenc``'s ``encode_batch_packed`` (encode.py:262): the
+        striped route's files where ``tpuenc``'s v1 packer takes the batch
+        (the interleaved mode with a restart interval, MCU-aligned images,
+        MCU rows dividing by the stripe count, the restart interval
+        dividing each stripe's MCUs, one image per batch coordinate); None
+        otherwise.  ``tpuenc``'s v1 packer also returns None where its
+        fixed budget overflows; the general route climbs its ladder."""
+        config = self._config()
+        interval = config.restart_interval
+        if config.mode() != "interleaved" or not interval:
+            return None
+        geo = self._geometry(width, height, color_type)
+        if (geo["num_rows"] % stripe_counts(self._mesh)[1]
+                or geo["rows_per_stripe"] * geo["num_cols"] % interval):
+            return None
+        return self.encode_batch_packed_general(images, width, height,
+                                                color_type)
 
     def _file(self, scans, width, height, color_type, config, huffman):
         jct = color_type.jpeg_color_type
@@ -231,17 +307,13 @@ class ShardedEncoder(Encoder):
                 huffman[t] = list(pair)
         return huffman
 
-    def encode_batch(self, images, width: int, height: int,
-                     color_type: ColorType) -> List[bytes]:
-        """Same-shape images over the mesh, on :meth:`route`'s route
-        (``tpuenc``'s ``encode_batch_packed_general``, encode.py:91, for k
-        images a batch coordinate): image k * b + i on batch coordinate b,
-        every scan of it packed by the stripes on their devices, the bits
-        gathered once and each file assembled on every rank."""
-        color_type = ColorType(color_type)
-        pixels = [_validate_pixels(d, width, height, color_type)
-                  for d in images]
-        self.route(len(pixels), width, height, color_type)
+    def _encode_striped(self, pixels, width: int, height: int,
+                        color_type: ColorType) -> List[bytes]:
+        """The striped route (``tpuenc``'s ``encode_batch_packed_general``,
+        encode.py:91, for k images a batch coordinate) of the validated
+        ``pixels``: image k * b + i on batch coordinate b, every scan of it
+        packed by the stripes on their devices, the bits gathered once and
+        each file assembled on every rank."""
         config = self._config()
         mesh = self._mesh
         n_b, n_s = stripe_counts(mesh)

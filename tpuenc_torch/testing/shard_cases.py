@@ -12,16 +12,23 @@ string argument names a ``SamplingFactor``; ``w``, ``h``; ``color_type``
 (a ``ColorType`` name); ``seeds``, one image per seed
 (:func:`case_images`).  Kinds:
 
-* ``"encode"``: ``ShardedEncoder.encode_batch`` of the images: the files,
-  the route, the rung and this rank's kernel launches over the encode
-  (every wrapper's count, set to 0 just before it);
+* ``"encode"``: the encoder's ``method`` (``"encode_batch"`` unless the
+  case names another: ``"encode"`` of the first image, or one of the
+  striped methods ``tpuenc`` names) on the images: the files (None where
+  the method declines, ``"ValueError: ..."`` where it raises), the route,
+  the rung and this rank's kernel launches over the call (every
+  wrapper's count, set to 0 just before it);
+* ``"entry"``: ``encode_image`` of the first image's channels as YCbCr
+  planes (:func:`planes_buffer`) and ``encode_stream`` of it, each with
+  the route it took;
 * ``"step"``: the coefficient step with histograms
   (``shard.stripes.stripe_encode_step``): every stripe's streams,
   gathered (``shard.encode.gather``), and the reduced histograms;
 * ``"pack"``: this rank's general pack of its image at ``budget``: each
   scan's bits, block lengths and words;
-* ``"route"``: ``ShardedEncoder.route`` for ``n`` images, or the
-  ``ValueError`` it raises;
+* ``"route"``: for ``n`` images, ``ShardedEncoder.batch_route``,
+  ``ShardedEncoder.route`` or the ``ValueError`` it raises, and for
+  ``n`` 0 ``encode_batch([])``;
 * ``"dryrun"``: ``shard.dryrun.dryrun_multichip``.
 """
 
@@ -30,7 +37,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.types import ColorType, SamplingFactor
+from ..api import ImageBuffer
+from ..core.types import ColorType, JpegColorType, SamplingFactor
 from ..entropy import device_encode as de
 from ..kernels.pipeline import scan_layout
 from ..shard.dryrun import dryrun_multichip
@@ -58,6 +66,41 @@ def apply_settings(encoder, settings, sampling_factor=SamplingFactor):
         getattr(encoder, name)(arg)
 
 
+def planes_buffer(image, image_buffer=ImageBuffer,
+                  jpeg_color_type=JpegColorType.YCBCR, color_type=None):
+    """An ``image_buffer`` (the port's ``ImageBuffer`` or ``tpuenc``'s)
+    whose planes are the channels of the (h, w, c) ``image``: already in
+    ``jpeg_color_type``, or in the input ``color_type`` where one is given
+    (a converting buffer, which ``encode_image`` converts as ``encode``
+    converts that color type)."""
+
+    class Planes(image_buffer):
+        def get_jpeg_color_type(self):
+            return jpeg_color_type
+
+        def color_type(self):
+            return color_type
+
+        def width(self):
+            return image.shape[1]
+
+        def height(self):
+            return image.shape[0]
+
+        def to_planes(self):
+            return tuple(image[..., c] for c in range(image.shape[2]))
+
+    return Planes()
+
+
+def _refused(call):
+    """``call()``, or the ``ValueError`` it raises as a string."""
+    try:
+        return call()
+    except ValueError as e:
+        return f"ValueError: {e}"
+
+
 def kernel_wrappers():
     """Every kernel wrapper, with its launch counter (K1-K9)."""
     from ..entropy import pallas_hist as ph
@@ -78,15 +121,29 @@ def _run(case, mesh, device):
     enc = ShardedEncoder(case["quality"], mesh, device=device)
     apply_settings(enc, case["settings"])
     if kind == "route":
-        try:
-            return enc.route(case["n"], w, h, ct)
-        except ValueError as e:
-            return f"ValueError: {e}"
+        n = case["n"]
+        return (enc.batch_route(n, w, h, ct),
+                _refused(lambda: enc.route(n, w, h, ct)),
+                enc.encode_batch([], w, h, ct) if n == 0 else None)
     images = case_images(case)
+    if kind == "entry":
+        image = images[0]
+        coded = enc.encode_image(planes_buffer(image))
+        out = {"encode_image": (coded, enc.last_encode_path)}
+        stream = b"".join(enc.encode_stream(image, w, h, ct))
+        out["encode_stream"] = (stream, enc.last_encode_path)
+        return out
     if kind == "encode":
+        method = case.get("method", "encode_batch")
+
+        def call():
+            if method == "encode":
+                return [enc.encode(images[0], w, h, ct)]
+            return getattr(enc, method)(images, w, h, ct)
+
         for fn in kernel_wrappers():
             fn.launches = 0
-        files = enc.encode_batch(images, w, h, ct)
+        files = _refused(call)
         launches = {fn.__name__: fn.launches for fn in kernel_wrappers()}
         return files, enc.last_encode_path, enc.last_budget, launches
     config = enc._config()
@@ -110,11 +167,12 @@ def _run(case, mesh, device):
     raise ValueError(f"unknown case kind {kind!r}")
 
 
-def run_cases(batch: int, cases, device) -> dict:
-    """Every case on this rank over a (batch, world // batch) gloo mesh,
-    in order (every rank runs the same list), computed on ``device``:
+def run_cases(batch: int, cases, device, mesh_device: str = "cpu") -> dict:
+    """Every case on this rank over a (batch, world // batch) mesh whose
+    collectives run on ``mesh_device`` ("cpu": gloo, "cuda": NCCL), in
+    order (every rank runs the same list), computed on ``device``:
     {name: result}."""
-    mesh = make_mesh("cpu", batch)
+    mesh = make_mesh(mesh_device, batch)
     with torch.no_grad():
         return {case["name"]: _run(case, mesh, device) for case in cases}
 
