@@ -956,7 +956,7 @@ def host_finish():
 
 def counted_kernels():
     """Every kernel wrapper, with its launch counter."""
-    from tpuenc_torch.testing.shard_cases import kernel_wrappers
+    from tpuenc_torch.tracing import kernel_wrappers
 
     return kernel_wrappers()
 
@@ -1643,122 +1643,38 @@ def scan_payloads(jpeg):
     return out
 
 
-class ChunkedStages:
-    """The stages of chunked encodes, from wrappers around
-    ``entropy.chunked``'s upload, pack, host copy and stuffer (restored on
-    exit): on the card (CUDA events), each upload and each chunk's span
-    from the end of its upload to the end of its first pack, and each
-    re-pack's; on the host clock, the uploads (the pageable copy, and the
-    wait for the stream's queued work that it starts with), the launches of
-    each chunk from its upload to its first pack returning, the waits for
-    each chunk's ``meta``, the copies of the used words, the stuffer and
-    the file's assembly (``Encoder._assemble_scans``); and every pack's
-    (blocks, budget)."""
+def traced(run):
+    """``run()`` with the port's tracer on (``tpuenc_torch.tracing``):
+    (its result, the last request it made)."""
+    from tpuenc_torch import tracing
 
-    def __init__(self):
-        from tpuenc_torch.api import Encoder
-        from tpuenc_torch.entropy import chunked
+    tracing.enable(keep=16)
+    try:
+        out = run()
+    finally:
+        tracing.disable()
+    return out, tracing.requests()[-1]
 
-        self.mod = chunked
-        self.encoder = Encoder
-        self.real = (chunked._upload, chunked._pack, chunked.HostCopy.fetch,
-                     chunked.StreamingStuffer.add_chunk, Encoder._assemble_scans)
-        self.upload, self.chunks, self.repacks, self.packs = [], [], [], []
-        self.host = {k: 0.0 for k in ("upload", "launch", "meta", "words",
-                                      "stuff", "assembly")}
-        self.words_bytes = 0
-        self._after_upload = None
 
-    @staticmethod
-    def _event():
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        return e
-
-    def __enter__(self):
-        upload, pack, fetch, add, assemble = self.real
-
-        def timed_upload(slab, device):
-            a = self._event()
-            t0 = time.perf_counter()
-            out = upload(slab, device)
-            self._uploaded = time.perf_counter()
-            self.host["upload"] += self._uploaded - t0
-            self._after_upload = self._event()
-            self.upload.append((a, self._after_upload))
-            return out
-
-        def timed_pack(blocks, dcdiff, valid, spec, params, budget):
-            a = self._event()
-            out = pack(blocks, dcdiff, valid, spec, params, budget)
-            b = self._event()
-            self.packs.append((blocks.shape[1], budget))
-            if self._after_upload is not None:
-                self.chunks.append((self._after_upload, b))
-                self.host["launch"] += time.perf_counter() - self._uploaded
-                self._after_upload = None
-            else:
-                self.repacks.append((a, b))
-            return out
-
-        def timed_fetch(copier, ready, **tensors):
-            t0 = time.perf_counter()
-            out = fetch(copier, ready, **tensors)
-            key = "words" if "words" in tensors else "meta"
-            self.host[key] += time.perf_counter() - t0
-            if key == "words":
-                self.words_bytes += nbytes(tensors["words"])
-            return out
-
-        def timed_add(stuffer, words, nbits, lens):
-            t0 = time.perf_counter()
-            out = add(stuffer, words, nbits, lens)
-            self.host["stuff"] += time.perf_counter() - t0
-            return out
-
-        def timed_assemble(enc, *args):
-            t0 = time.perf_counter()
-            out = assemble(enc, *args)
-            self.host["assembly"] += time.perf_counter() - t0
-            return out
-
-        m = self.mod
-        m._upload, m._pack = timed_upload, timed_pack
-        m.HostCopy.fetch, m.StreamingStuffer.add_chunk = timed_fetch, timed_add
-        self.encoder._assemble_scans = timed_assemble
-        return self
-
-    def __exit__(self, *exc):
-        m = self.mod
-        (m._upload, m._pack, m.HostCopy.fetch, m.StreamingStuffer.add_chunk,
-         self.encoder._assemble_scans) = self.real
-        torch.cuda.synchronize()
-
-    def report(self, wall_s):
-        def ms(pairs):
-            return [a.elapsed_time(b) for a, b in pairs]
-
-        up, dev, rep = sum(ms(self.upload)), ms(self.chunks), sum(ms(self.repacks))
-        host = {k: v * 1e3 for k, v in self.host.items()}
-        total = up + sum(dev) + rep + host["words"] + host["stuff"]
-        wall = wall_s * 1e3
-        print(f"    pixel upload, {len(self.upload)} slabs: {up:.3f} ms on the "
-              f"card (events), {host['upload']:.3f} ms host clock")
-        print(f"    device per chunk (events, from its upload to its pack): "
-              f"{sum(dev) / len(dev):.3f} ms x {len(dev)} = {sum(dev):.3f} ms; "
-              f"{len(self.repacks)} re-packs {rep:.3f} ms")
-        print(f"    D2H of the used words ({self.words_bytes / 2**20:.1f} MiB "
-              f"into page-locked memory, host clock) {host['words']:.3f} ms")
-        print(f"    StreamingStuffer (host clock) {host['stuff']:.3f} ms")
-        print(f"    wall {wall:.3f} ms beside the stages' sum {total:.3f} ms "
-              f"(uploads and chunk spans on the card, D2H, stuffer)")
-        print(f"    host clock: uploads {host['upload']:.3f}, launches "
-              f"{host['launch']:.3f}, waits for meta {host['meta']:.3f}, "
-              f"words {host['words']:.3f}, stuffer {host['stuff']:.3f}, file "
-              f"assembly {host['assembly']:.3f}, the rest "
-              f"{wall - sum(host.values()):.3f} ms; lookahead-1 left the host "
-              f"waiting {host['meta']:.3f} ms for {sum(dev) + rep:.3f} ms of "
-              f"chunk spans")
+def stage_report(req, wall_s):
+    """A request's host stages beside its wall time: each stage's self
+    time (host clock: its spans less their child spans), its spans'
+    count, the counters and the chunks' packs."""
+    self_ns, n = {}, {}
+    for s in req.spans:
+        self_ns[s.name] = self_ns.get(s.name, 0) + s.ns
+        n[s.name] = n.get(s.name, 0) + 1
+        if s.parent is not None:
+            parent = req.spans[s.parent].name
+            self_ns[parent] -= s.ns
+    packs = [s for s in req.spans if s.name == "pack"]
+    print(f"    host stages (tracer, self ms x spans) over a wall of "
+          f"{wall_s * 1e3:.3f} ms: " + ", ".join(
+              f"{k} {v * 1e-6:.3f} x {n[k]}" for k, v in sorted(
+                  self_ns.items(), key=lambda kv: -kv[1])))
+    print(f"    syncs {req.counters.get('syncs', 0)}, ladder retries "
+          f"{req.counters.get('ladder_retries', 0)}, packs (blocks, rung) "
+          f"{[(s.ints['blocks'], s.ints['rung']) for s in packs]}")
 
 
 def expected_pack_launches(packs):
@@ -1839,6 +1755,63 @@ print(json.dumps({"seconds": time.perf_counter() - t0, "bytes": n_bytes,
 """
 
 
+def config5_chunked(dev, img, keep):
+    """Phase 9 (a): ``img``, config 5, encoded on the chunked path, its
+    chunks, packs and launches checked, then three warm encodes, the
+    third's stages from the tracer.  Keeps the input and the file's
+    (length, sha256) in ``keep``; returns (the encoder, the file, its peak
+    device memory, its launches)."""
+    import hashlib
+
+    from tpuenc_torch import ColorType
+
+    ct = ColorType.CMYK_AS_YCCK
+    w = h = CONFIG5
+    mp = w * h / 1e6
+    enc = config5_encoder(dev)
+    (out_a, launches, peak_a), req = traced(lambda: peak_encode(
+        dev, lambda: enc.encode(img, w, h, ct)))
+    n_chunks = sum(s.name == "transform" for s in req.spans)
+    packs = [(s.ints["blocks"], s.ints["rung"]) for s in req.spans
+             if s.name == "pack"]
+    want_chunks = -(-h // (64 * 16))  # 64 MCU rows of 16 pixel rows
+    print(f"  (a) {len(out_a)} bytes, path {enc.last_encode_path}, rung "
+          f"{enc.last_budget}, {n_chunks} chunks, packs (blocks, rung) "
+          f"{packs}, peak device memory {peak_a / 2**20:.1f} MiB, "
+          f"launches {launches}")
+    if enc.last_encode_path != "device-chunked":
+        raise AssertionError(f"(a) ran on {enc.last_encode_path}")
+    check_jpeg(out_a)
+    keep.update(img=img, a=(len(out_a), hashlib.sha256(out_a).hexdigest()))
+    want = {"fdct_quantize": 4 * n_chunks, **expected_pack_launches(packs)}
+    got = {k: launches[k] for k in want}
+    if got != want or n_chunks != want_chunks:
+        raise AssertionError(f"(a) launches {got}, want {want} over "
+                             f"{want_chunks} chunks")
+    if req.launches != launches:
+        raise AssertionError(f"(a) the request's launches {req.launches}, "
+                             f"the wrappers' {launches}")
+    check_launches(launches, ["fdct_quantize", "pack_blocks", "merge_chunks",
+                              "concat_rows"],
+                   ["pack_acbands", "hist_count", "fused_sample_pack",
+                    "hist_sym"])
+    times = []
+    for i in range(3):  # the third run records its stages
+        t0 = time.perf_counter()
+        if i == 2:
+            _, req = traced(lambda: enc.encode(img, w, h, ct))
+        else:
+            enc.encode(img, w, h, ct)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    print(f"  (a) encode warm, median of 3: {med * 1e3:.1f} ms = {mp / med:.1f} "
+          f"MP/s (runs ms: {' '.join(f'{t * 1e3:.1f}' for t in times)}); the "
+          f"stages of the third:")
+    stage_report(req, times[-1])
+    return enc, out_a, peak_a, launches
+
+
 def phase_config5(dev, flagship_bytes, progressive_bytes, keep):
     """Phase 9: bounded memory and streaming at BASELINE config 5.  Keeps
     in ``keep`` what phase 11 holds its striped encode to: the input
@@ -1860,42 +1833,8 @@ def phase_config5(dev, flagship_bytes, progressive_bytes, keep):
     paths = {}
 
     # (a) encode on the chunked path.
-    enc = config5_encoder(dev)
-    with ChunkedStages() as st:
-        out_a, launches, peak_a = peak_encode(
-            dev, lambda: enc.encode(img, w, h, ct))
-    n_chunks = len(st.chunks)
-    want_chunks = -(-h // (64 * 16))  # 64 MCU rows of 16 pixel rows
-    print(f"  (a) {len(out_a)} bytes, path {enc.last_encode_path}, rung "
-          f"{enc.last_budget}, {n_chunks} chunks, packs (blocks, rung) "
-          f"{st.packs}, peak device memory {peak_a / 2**20:.1f} MiB, "
-          f"launches {launches}")
-    if enc.last_encode_path != "device-chunked":
-        raise AssertionError(f"(a) ran on {enc.last_encode_path}")
-    check_jpeg(out_a)
-    keep.update(img=img, a=(len(out_a), hashlib.sha256(out_a).hexdigest()))
-    want = {"fdct_quantize": 4 * n_chunks, **expected_pack_launches(st.packs)}
-    got = {k: launches[k] for k in want}
-    if got != want or n_chunks != want_chunks:
-        raise AssertionError(f"(a) launches {got}, want {want} over "
-                             f"{want_chunks} chunks")
-    check_launches(launches, ["fdct_quantize", "pack_blocks", "merge_chunks",
-                              "concat_rows"],
-                   ["pack_acbands", "hist_count", "fused_sample_pack",
-                    "hist_sym"])
-    paths["config5_interleaved"] = launches
-    times = []
-    for i in range(3):  # the third run records its stages
-        with ChunkedStages() if i == 2 else contextlib.nullcontext() as st:
-            t0 = time.perf_counter()
-            enc.encode(img, w, h, ct)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-    med = statistics.median(times)
-    print(f"  (a) encode warm, median of 3: {med * 1e3:.1f} ms = {mp / med:.1f} "
-          f"MP/s (runs ms: {' '.join(f'{t * 1e3:.1f}' for t in times)}); the "
-          f"stages of the third:")
-    st.report(times[-1])
+    enc, out_a, peak_a, paths["config5_interleaved"] = config5_chunked(
+        dev, img, keep)
 
     # (b) streaming from a pull source at another chunk height.
     pieces = list(enc.encode_stream(lambda y0, n: img[y0:y0 + n], w, h, ct,

@@ -26,6 +26,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from . import tracing
 from .core import errors
 from .core.tables import QuantizationTable, default_tables, quantization_table
 from .core.types import (
@@ -87,9 +88,10 @@ def batch_route(n: int, width: int, height: int, color_type: ColorType,
     as ``last_encode_path`` names it: images past the whole-image limits go
     image by image (``de.PER_IMAGE``), as in ``tpuenc``; any other batch
     takes ``entropy.device_encode.batch_route``'s."""
-    if _over_limits(width, height, color_type, config):
-        return de.PER_IMAGE
-    return de.batch_route(n, width, height, color_type, config)
+    with tracing.span("plan"):
+        if _over_limits(width, height, color_type, config):
+            return de.PER_IMAGE
+        return de.batch_route(n, width, height, color_type, config)
 
 
 def _check_dims(width: int, height: int) -> None:
@@ -313,52 +315,57 @@ class Encoder:
         color_type: ColorType,
     ) -> bytes:
         """Encode raw interleaved pixel data (reference encoder.rs:440-503)."""
-        color_type = ColorType(color_type)
-        pixels = _validate_pixels(data, width, height, color_type)
-        return self._finish(self._encode_pixels(pixels, width, height, color_type))
+        with tracing.request("encode"):
+            color_type = ColorType(color_type)
+            pixels = _validate_pixels(data, width, height, color_type)
+            return self._finish(
+                self._encode_pixels(pixels, width, height, color_type))
 
     def encode_image(self, image: ImageBuffer) -> bytes:
         """Encode a user-supplied :class:`ImageBuffer`
         (reference encoder.rs:506-515)."""
-        width, height = image.width(), image.height()
-        _check_dims(width, height)
-        jct = image.get_jpeg_color_type()
-        ct_in = getattr(image, "color_type", lambda: None)()
-        if ct_in is not None:
-            # Converting buffer (reference image_buffer.rs:135-204).
-            ct_in = ColorType(ct_in)
-            if ct_in.jpeg_color_type is not jct:
-                raise ValueError(
-                    f"ImageBuffer.color_type() {ct_in} encodes as "
-                    f"{ct_in.jpeg_color_type}, but get_jpeg_color_type() "
-                    f"returned {jct}"
+        with tracing.request("encode_image"):
+            width, height = image.width(), image.height()
+            _check_dims(width, height)
+            jct = image.get_jpeg_color_type()
+            ct_in = getattr(image, "color_type", lambda: None)()
+            if ct_in is not None:
+                # Converting buffer (reference image_buffer.rs:135-204).
+                ct_in = ColorType(ct_in)
+                if ct_in.jpeg_color_type is not jct:
+                    raise ValueError(
+                        f"ImageBuffer.color_type() {ct_in} encodes as "
+                        f"{ct_in.jpeg_color_type}, but get_jpeg_color_type() "
+                        f"returned {jct}"
+                    )
+                stacked = np.stack(
+                    [np.asarray(p, dtype=np.uint8) for p in image.to_planes()],
+                    axis=-1,
                 )
+                if ct_in.bytes_per_pixel == 1:
+                    stacked = stacked[..., 0]
+                return self._finish(
+                    self._encode_pixels(stacked, width, height, ct_in)
+                )
+            # Planes already in JPEG colorspace: reuse the passthrough types.
+            ct = {
+                JpegColorType.LUMA: ColorType.LUMA,
+                JpegColorType.YCBCR: ColorType.YCBCR,
+                JpegColorType.CMYK: ColorType.CMYK,
+                JpegColorType.YCCK: ColorType.YCCK,
+            }[jct]
             stacked = np.stack(
                 [np.asarray(p, dtype=np.uint8) for p in image.to_planes()],
                 axis=-1,
             )
-            if ct_in.bytes_per_pixel == 1:
+            if jct is JpegColorType.CMYK:
+                # CMYK planes are already inverted; undo so the ingest
+                # inversion (image_buffer.rs:250-255) round-trips.
+                stacked = 255 - stacked
+            if jct is JpegColorType.LUMA:
                 stacked = stacked[..., 0]
             return self._finish(
-                self._encode_pixels(stacked, width, height, ct_in)
-            )
-        # Planes already in JPEG colorspace: reuse the passthrough types.
-        ct = {
-            JpegColorType.LUMA: ColorType.LUMA,
-            JpegColorType.YCBCR: ColorType.YCBCR,
-            JpegColorType.CMYK: ColorType.CMYK,
-            JpegColorType.YCCK: ColorType.YCCK,
-        }[jct]
-        stacked = np.stack(
-            [np.asarray(p, dtype=np.uint8) for p in image.to_planes()], axis=-1
-        )
-        if jct is JpegColorType.CMYK:
-            # CMYK planes are already inverted; undo so the ingest
-            # inversion (image_buffer.rs:250-255) round-trips.
-            stacked = 255 - stacked
-        if jct is JpegColorType.LUMA:
-            stacked = stacked[..., 0]
-        return self._finish(self._encode_pixels(stacked, width, height, ct))
+                self._encode_pixels(stacked, width, height, ct))
 
     def encode_stream(
         self,
@@ -390,6 +397,10 @@ class Encoder:
         :data:`STREAM_MAX_SCANS` scans comes as one body piece.  The
         pieces go to the caller only, not to the encoder's sink.
         """
+        return tracing.stream("encode_stream", self._encode_stream(
+            data, width, height, color_type, chunk_mcu_rows))
+
+    def _encode_stream(self, data, width, height, color_type, chunk_mcu_rows):
         color_type = ColorType(color_type)
         if callable(data) or hasattr(data, "get_rows"):
             _check_dims(width, height)
@@ -484,6 +495,10 @@ class Encoder:
         any image used.  Each file goes to the encoder's sink
         (``new_file`` / ``new_writer``) as :meth:`encode` sends it.
         """
+        with tracing.request("encode_batch"):
+            return self._encode_batch(images, width, height, color_type)
+
+    def _encode_batch(self, images, width, height, color_type) -> List[bytes]:
         color_type = ColorType(color_type)
         pixel_arrays = [_validate_pixels(data, width, height, color_type)
                         for data in images]
@@ -511,14 +526,14 @@ class Encoder:
         jct = color_type.jpeg_color_type
         components = init_components(jct, config.sampling_factor)
         prefix = bytes(self._leading_segments(config, jct))
-        return [
-            self._finish(
-                prefix
-                + self._assemble_scans(scans, width, height, color_type,
-                                       config, components, q_tables, huffman)
-                + segments.marker(markers.EOI))
-            for scans in batch_scans
-        ]
+        files = []
+        for scans in batch_scans:
+            body = self._assemble_scans(scans, width, height, color_type,
+                                        config, components, q_tables, huffman)
+            with tracing.span("assemble"):
+                jpeg = prefix + body + segments.marker(markers.EOI)
+            files.append(self._finish(jpeg))
+        return files
 
     def _finish(self, payload: bytes) -> bytes:
         try:
@@ -560,7 +575,9 @@ class Encoder:
         them "device-v2", or "device-v2-fused" for the interleaved mode
         under ``fused_p1``, both with the device finish."""
         interleaved = config.mode() == "interleaved"
-        if _over_limits(width, height, color_type, config):
+        with tracing.span("plan"):
+            over = _over_limits(width, height, color_type, config)
+        if over:
             return "device-chunked" if interleaved else "device-chunked-multipass"
         return "device-v2-fused" if self.fused_p1 and interleaved else "device-v2"
 
@@ -568,18 +585,21 @@ class Encoder:
         """The (luma, chroma) quantization tables, the default Huffman
         tables and the encode parameters with both on ``self.device``
         (the quantizers cached by (quantization, quality))."""
-        q_tables = [
-            quantization_table(config.quantization[0], config.quality, luma=True),
-            quantization_table(config.quantization[1], config.quality, luma=False),
-        ]
-        key = (config.quantization, config.quality)
-        if key not in self._quant:
-            self._quant[key] = de.quant_params(q_tables, self.device)
-        if self._default_huffman is None:
-            self._default_huffman = de.huffman_params(
-                [list(pair) for pair in default_tables()], self.device)
-        return (q_tables, [list(pair) for pair in default_tables()],
-                de.EncodeParams(*self._quant[key], *self._default_huffman))
+        with tracing.span("plan"):
+            q_tables = [
+                quantization_table(config.quantization[0], config.quality,
+                                   luma=True),
+                quantization_table(config.quantization[1], config.quality,
+                                   luma=False),
+            ]
+            key = (config.quantization, config.quality)
+            if key not in self._quant:
+                self._quant[key] = de.quant_params(q_tables, self.device)
+            if self._default_huffman is None:
+                self._default_huffman = de.huffman_params(
+                    [list(pair) for pair in default_tables()], self.device)
+            return (q_tables, [list(pair) for pair in default_tables()],
+                    de.EncodeParams(*self._quant[key], *self._default_huffman))
 
     def _encode_pixels(
         self, pixels: np.ndarray, width: int, height: int, color_type: ColorType
@@ -590,13 +610,13 @@ class Encoder:
         q_tables, huffman, params = self._default_tables(config)
         scans = self._scan_payloads(pixels, width, height, color_type, config,
                                     huffman, params)
-        out = self._leading_segments(config, jct)
-        out += self._assemble_scans(
-            scans, width, height, color_type, config, components, q_tables,
-            huffman,
-        )
-        out += segments.marker(markers.EOI)
-        return bytes(out)
+        body = self._assemble_scans(scans, width, height, color_type, config,
+                                    components, q_tables, huffman)
+        with tracing.span("assemble"):
+            out = self._leading_segments(config, jct)
+            out += body
+            out += segments.marker(markers.EOI)
+            return bytes(out)
 
     def _scan_payloads(self, pixels, width, height, color_type, config,
                        huffman, params) -> List[bytes]:
@@ -618,9 +638,10 @@ class Encoder:
             self.last_encode_path, self.last_budget = route, ladder[0]
             return scans
 
-        if not pixels.flags.writeable:
-            pixels = pixels.copy()
-        px = torch.from_numpy(np.ascontiguousarray(pixels)).to(self.device)
+        with tracing.span("upload"):
+            if not pixels.flags.writeable:
+                pixels = pixels.copy()
+            px = torch.from_numpy(np.ascontiguousarray(pixels)).to(self.device)
         pinned = self._pinned_buffer()
         if config.optimize_huffman_table:
             # Two passes (tpuenc/api.py:776-825): coefficients and
@@ -633,7 +654,9 @@ class Encoder:
             streams = fn_cm(px, width, height, color_type, config,
                             params.reciprocals, params.corrections)
             hists = scan_histograms(streams, components,
-                                    config.progressive_scans).cpu().numpy()
+                                    config.progressive_scans)
+            with tracing.span("sync.hist"):
+                hists = hists.cpu().numpy()
             hint = optimize_tables(hists, huffman, width, height, color_type,
                                    config)
             dc, ac = de.huffman_params(huffman, self.device)
@@ -656,21 +679,22 @@ class Encoder:
     ) -> bytes:
         """Frame header + per-scan SOS + entropy payloads, following the
         scan plan shared with the device path."""
-        layout = scan_layout(width, height, color_type, config)
-        plan = de.build_scan_plan(layout, components, config)
-        out = bytearray()
-        out += self._frame_header(
-            width, height, components, q_tables, huffman, config,
-            len(components),
-        )
-        interleaved = layout["interleaved"]
-        for (stream_idx, spec, spectral), payload in zip(plan, scan_payloads):
-            sos_comps = (
-                list(components) if interleaved else [components[stream_idx]]
+        with tracing.span("assemble"):
+            layout = scan_layout(width, height, color_type, config)
+            plan = de.build_scan_plan(layout, components, config)
+            out = bytearray()
+            out += self._frame_header(
+                width, height, components, q_tables, huffman, config,
+                len(components),
             )
-            out += segments.sos(sos_comps, spectral)
-            out += payload
-        return bytes(out)
+            interleaved = layout["interleaved"]
+            for (stream_idx, _, spectral), payload in zip(plan,
+                                                           scan_payloads):
+                sos_comps = (list(components) if interleaved
+                             else [components[stream_idx]])
+                out += segments.sos(sos_comps, spectral)
+                out += payload
+            return bytes(out)
 
     def _frame_header(
         self,
@@ -704,13 +728,14 @@ def optimize_tables(hists, huffman, width, height, color_type, config) -> int:
     (dc, ac) pairs in place with the K.2 tables built from ``hists`` (the
     (T, 2, 257) device counts, the reserved symbol not yet seeded) and
     return the ladder's budget hint from the exact stream size."""
-    pairs = [(h[0], h[1]) for h in np.asarray(hists, dtype=np.int64)]
-    for i, tables in enumerate(tables_from_histograms(pairs)):
-        huffman[i] = list(tables)
-    return budget_hint_from_bits(
-        exact_stream_bits(pairs, huffman[:len(pairs)]),
-        _plan_pack_rows(width, height, color_type, config),
-    )
+    with tracing.span("tables"):
+        pairs = [(h[0], h[1]) for h in np.asarray(hists, dtype=np.int64)]
+        for i, tables in enumerate(tables_from_histograms(pairs)):
+            huffman[i] = list(tables)
+        return budget_hint_from_bits(
+            exact_stream_bits(pairs, huffman[:len(pairs)]),
+            _plan_pack_rows(width, height, color_type, config),
+        )
 
 
 def _drain_source(source, height: int):
@@ -718,7 +743,8 @@ def _drain_source(source, height: int):
     (tpuenc/api.py:478-482)."""
     rows = source(0, height)
     if isinstance(rows, torch.Tensor):
-        return rows.cpu().numpy()
+        with tracing.span("sync.rows"):
+            return rows.cpu().numpy()
     if isinstance(rows, (bytes, bytearray, memoryview)):
         return np.frombuffer(rows, np.uint8)
     return np.asarray(rows, dtype=np.uint8)

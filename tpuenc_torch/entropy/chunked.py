@@ -31,6 +31,7 @@ import sys
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core import errors
 from ..core.types import ColorType, EncoderConfig
 from ..kernels.pipeline import fn_cm, scan_layout
@@ -142,38 +143,39 @@ class StreamingStuffer:
                   lens: np.ndarray) -> bytes:
         """Feed one device chunk (packed words + per-block bit lengths);
         returns the output bytes that became final."""
-        self.acc.append_words(words, nbits)
-        out = bytearray()
-        lens = np.asarray(lens, dtype=np.int64)
-        pos = 0
-        n = lens.shape[0]
-        while pos < n:
-            room = self._seg_len(self.seg_idx) - (
-                self.blocks_done - self.seg_idx * self.seg
-            )
-            take = min(room, n - pos)
-            self.seg_bits += int(lens[pos:pos + take].sum())
-            self.blocks_done += take
-            pos += take
-            if take == room:
-                self._finish_segment(out)
-        # Mid-segment: flush the whole bytes that are already final.  Runs
-        # of at least 64 KiB go through the native chunk-parallel stuffer;
-        # shorter ones through the numpy extract and bytes.replace.  Both
-        # give the same bytes.
-        avail = (self.seg_bits - 8 * self.seg_flushed) >> 3
-        if avail > 0:
-            rel = self.read_bit - self.base_bit
-            if avail >= (1 << 16):
-                stuffed = native.stuff_stream(self.acc.buf, rel, avail)
-            else:
-                stuffed = _extract_bytes(self.acc.buf, rel, avail).replace(
-                    b"\xff", b"\xff\x00")
-            out += stuffed
-            self.read_bit += 8 * avail
-            self.seg_flushed += avail
-        self._compact()
-        return bytes(out)
+        with tracing.span("finish.stream"):
+            self.acc.append_words(words, nbits)
+            out = bytearray()
+            lens = np.asarray(lens, dtype=np.int64)
+            pos = 0
+            n = lens.shape[0]
+            while pos < n:
+                room = self._seg_len(self.seg_idx) - (
+                    self.blocks_done - self.seg_idx * self.seg
+                )
+                take = min(room, n - pos)
+                self.seg_bits += int(lens[pos:pos + take].sum())
+                self.blocks_done += take
+                pos += take
+                if take == room:
+                    self._finish_segment(out)
+            # Mid-segment: flush the whole bytes that are already final.  Runs
+            # of at least 64 KiB go through the native chunk-parallel stuffer;
+            # shorter ones through the numpy extract and bytes.replace.  Both
+            # give the same bytes.
+            avail = (self.seg_bits - 8 * self.seg_flushed) >> 3
+            if avail > 0:
+                rel = self.read_bit - self.base_bit
+                if avail >= (1 << 16):
+                    stuffed = native.stuff_stream(self.acc.buf, rel, avail)
+                else:
+                    stuffed = _extract_bytes(self.acc.buf, rel, avail).replace(
+                        b"\xff", b"\xff\x00")
+                out += stuffed
+                self.read_bit += 8 * avail
+                self.seg_flushed += avail
+            self._compact()
+            return bytes(out)
 
     def _finish_segment(self, out: bytearray) -> None:
         nbits = self.seg_bits - 8 * self.seg_flushed
@@ -208,13 +210,14 @@ class StreamingStuffer:
         """Check that all blocks were fed; every byte was already flushed
         by :meth:`add_chunk` (the last segment closes with its last
         block)."""
-        if self.blocks_done != self.total:
-            raise ValueError(
-                f"fed {self.blocks_done} blocks, expected {self.total}"
-            )
-        if self.seg_idx != self.n_seg:
-            raise ValueError("segment accounting mismatch")
-        return b""
+        with tracing.span("finish.stream"):
+            if self.blocks_done != self.total:
+                raise ValueError(
+                    f"fed {self.blocks_done} blocks, expected {self.total}"
+                )
+            if self.seg_idx != self.n_seg:
+                raise ValueError("segment accounting mismatch")
+            return b""
 
     def _compact(self) -> None:
         drop = (self.read_bit - self.base_bit) >> 3
@@ -226,9 +229,10 @@ class StreamingStuffer:
 
 def _upload(slab: np.ndarray, device) -> torch.Tensor:
     """One chunk's host rows on ``device`` (a pageable copy)."""
-    if not slab.flags.writeable:  # torch.from_numpy warns on read-only arrays
-        slab = slab.copy()
-    return torch.from_numpy(np.ascontiguousarray(slab)).to(device)
+    with tracing.span("upload"):
+        if not slab.flags.writeable:  # from_numpy warns on read-only arrays
+            slab = slab.copy()
+        return torch.from_numpy(np.ascontiguousarray(slab)).to(device)
 
 
 def read_rows(pixels, y0: int, n: int, width: int, color_type: ColorType,
@@ -315,12 +319,13 @@ def _pack(blocks, dcdiff, valid, spec, params: EncodeParams, budget: int):
     ``valid`` blocks (all of them where it is None).  A block's bits fit
     int16 (at most 64 items of at most 32 bits), which halves their
     copy."""
-    stream, bits, lens, ovf = device_scan_pack(
-        blocks, spec, params.dc, params.ac, budget, dcdiff=dcdiff,
-        valid_blocks=valid)
-    n = blocks.shape[1] if valid is None else valid
-    return (stream, torch.cat([ovf.to(torch.int64), bits.view(1)]),
-            lens[:n].to(torch.int16))
+    with tracing.span("pack", rung=budget, blocks=blocks.shape[1]):
+        stream, bits, lens, ovf = device_scan_pack(
+            blocks, spec, params.dc, params.ac, budget, dcdiff=dcdiff,
+            valid_blocks=valid)
+        n = blocks.shape[1] if valid is None else valid
+        return (stream, torch.cat([ovf.to(torch.int64), bits.view(1)]),
+                lens[:n].to(torch.int16))
 
 
 def pack_chunks(chunks, spec, params: EncodeParams,
@@ -343,17 +348,20 @@ def pack_chunks(chunks, spec, params: EncodeParams,
     def resolve(entry):
         inputs, budget, outs, ready = entry
         while True:
-            meta, lens = copier.fetch(ready, meta=outs[1], lens=outs[2])
+            with tracing.span("sync.meta"):
+                meta, lens = copier.fetch(ready, meta=outs[1], lens=outs[2])
             if not meta[0]:
                 break
             if budget >= ladder[-1]:
                 raise RuntimeError("chunked pack overflow at the top rung")
+            tracing.count("ladder_retries")
             while ladder[0] <= budget:
                 ladder.pop(0)
             inputs, budget, outs, ready = launch(inputs, ladder[0])
         bits = int(meta[1])
         # Only the words the chunk used, not the budget's capacity.
-        (words,) = copier.fetch(ready, words=outs[0][:(bits + 31) >> 5])
+        with tracing.span("sync.words"):
+            (words,) = copier.fetch(ready, words=outs[0][:(bits + 31) >> 5])
         return stuffer.add_chunk(words.view(np.uint32), bits, lens)
 
     pending = None
@@ -424,6 +432,8 @@ def encode_interleaved_chunked(pixels, width: int, height: int,
                                ladder=None) -> bytes:
     """The single scan's entropy bytes (stuffed, RST markers inline) of
     :func:`iter_encode_interleaved_chunked`, joined."""
-    return b"".join(iter_encode_interleaved_chunked(
+    pieces = list(iter_encode_interleaved_chunked(
         pixels, width, height, color_type, config, params, chunk_mcu_rows,
         ladder))
+    with tracing.span("assemble"):
+        return b"".join(pieces)

@@ -28,6 +28,7 @@ from typing import List
 
 import torch
 
+from .. import tracing
 from ..core.types import ColorType, EncoderConfig
 from ..kernels.pipeline import fn_cm, scan_layout
 from .chunked import StreamingStuffer, pack_chunks, read_rows
@@ -111,10 +112,12 @@ def encode_multipass_chunked(pixels, width: int, height: int,
 
     # ----- The K.2 tables from the summed counts -----
     if config.optimize_huffman_table:
-        hist = hist.cpu().numpy()
-        for i, pair in enumerate(tables_from_histograms(
-                [(h[0], h[1]) for h in hist])):
-            huffman[i] = list(pair)
+        with tracing.span("sync.hist"):
+            hist = hist.cpu().numpy()
+        with tracing.span("tables"):
+            for i, pair in enumerate(tables_from_histograms(
+                    [(h[0], h[1]) for h in hist])):
+                huffman[i] = list(pair)
         dc, ac = huffman_params(huffman, device)
         params = params._replace(dc=dc, ac=ac)
 
@@ -140,6 +143,7 @@ def encode_multipass_chunked(pixels, width: int, height: int,
                 yield blocks, dcdiff, min(cb, B - b0)
 
         stuffer = StreamingStuffer(spec.seg_blocks or B, B)
-        payloads.append(b"".join(pack_chunks(chunks(), spec, params, stuffer,
-                                             ladder)))
+        pieces = list(pack_chunks(chunks(), spec, params, stuffer, ladder))
+        with tracing.span("assemble"):
+            payloads.append(b"".join(pieces))
     return payloads

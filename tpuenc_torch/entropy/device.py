@@ -15,6 +15,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from .. import tracing
 from .huffopt import progressive_bands
 from .pallas_hist import _count, _fold, fold_counts, hist_count
 from .pallas_pack import _bit_length
@@ -95,14 +96,15 @@ def scan_histograms(comp_streams: Sequence, components,
     live = [b for b in bands if b[0] < b[1]]
     n_tables = min(len(components), 2)
     dev = comp_streams[0].device
-    out = torch.zeros((n_tables, 2, 257), dtype=torch.int64, device=dev)
-    for c, (comp, stream) in enumerate(zip(components, comp_streams)):
-        if comp.dc_huffman_table < n_tables:
-            out[comp.dc_huffman_table, 0] += dc_histogram(
-                stream, None if dc_prev is None else dc_prev[c])
-        if comp.ac_huffman_table < n_tables and live and stream.shape[1]:
-            stream = stream.contiguous()
-            raw = sum(hist_count(stream, live[k:k + 8]).sum(0, dtype=torch.int64)
-                      for k in range(0, len(live), 8))
-            out[comp.ac_huffman_table, 1] += fold_counts(raw)
-    return out
+    with tracing.span("histograms"):
+        out = torch.zeros((n_tables, 2, 257), dtype=torch.int64, device=dev)
+        for c, (comp, stream) in enumerate(zip(components, comp_streams)):
+            if comp.dc_huffman_table < n_tables:
+                out[comp.dc_huffman_table, 0] += dc_histogram(
+                    stream, None if dc_prev is None else dc_prev[c])
+            if comp.ac_huffman_table < n_tables and live and stream.shape[1]:
+                stream = stream.contiguous()
+                raw = sum(hist_count(stream, live[k:k + 8]).sum(
+                    0, dtype=torch.int64) for k in range(0, len(live), 8))
+                out[comp.ac_huffman_table, 1] += fold_counts(raw)
+        return out

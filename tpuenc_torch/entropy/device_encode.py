@@ -35,6 +35,7 @@ from typing import List, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core.types import ColorType, EncoderConfig
 from . import native
 from .device_pack import ScanSpec
@@ -183,8 +184,11 @@ def _pack_tables(dc_sizes, dc_codes, ac_sizes, ac_codes):
 
 
 def _on(device, arrays):
-    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                 for a in arrays)
+    out = []
+    for a in arrays:
+        with tracing.span("upload"):
+            out.append(torch.from_numpy(np.ascontiguousarray(a)).to(device))
+    return tuple(out)
 
 
 def quant_params(q_tables, device):
@@ -299,12 +303,14 @@ def _pack_scans_v2(comp_streams, scan_plan, params: EncodeParams,
     ``(stream_words int32, meta int64)`` with meta = [overflow,
     scan_bits..., seg_bits...] (unpadded segment bit counts, scans in plan
     order), both on the streams' device."""
-    W, L, overflow, scan_bits, seg_bits = pack_scans_p1(
-        comp_streams, scan_plan, params, budget)
-    out, _, ovf2 = merge_pack_stream(W, L, budget)
-    meta = torch.cat([(overflow | ovf2).to(torch.int64), *scan_bits,
-                      *seg_bits])
-    return out, meta
+    blocks = sum(comp_streams[si].shape[1] for si, _, _ in scan_plan)
+    with tracing.span("pack", rung=budget, blocks=blocks):
+        W, L, overflow, scan_bits, seg_bits = pack_scans_p1(
+            comp_streams, scan_plan, params, budget)
+        out, _, ovf2 = merge_pack_stream(W, L, budget)
+        meta = torch.cat([(overflow | ovf2).to(torch.int64), *scan_bits,
+                          *seg_bits])
+        return out, meta
 
 
 def qtab_pattern(layout):
@@ -318,11 +324,12 @@ def _pack_fused(samples, spec: ScanSpec, qtabs, params: EncodeParams,
     """Pack one interleaved scan from its samples: K8, then the P2-P4
     merge.  Returns ``(stream_words int32, meta int64)`` in
     :func:`_pack_scans_v2`'s layout, [overflow, scan bits, seg bits...]."""
-    words, lens, ovf = fused_sample_pack_blocks(samples, spec, qtabs, params,
-                                                budget)
-    out, _, ovf2 = merge_pack_stream(words, lens, budget)
-    bits, segs = _segment_bits(lens, samples.shape[1], spec)
-    return out, torch.cat([(ovf | ovf2).to(torch.int64), bits, segs])
+    with tracing.span("pack", rung=budget, blocks=samples.shape[1]):
+        words, lens, ovf = fused_sample_pack_blocks(samples, spec, qtabs,
+                                                    params, budget)
+        out, _, ovf2 = merge_pack_stream(words, lens, budget)
+        bits, segs = _segment_bits(lens, samples.shape[1], spec)
+        return out, torch.cat([(ovf | ovf2).to(torch.int64), bits, segs])
 
 
 def _finish_scans_v2(buf_words, meta_np, n_scans: int,
@@ -336,21 +343,22 @@ def _finish_scans_v2(buf_words, meta_np, n_scans: int,
     scan_bits = meta_np[1:1 + n_scans]
     seg_bits = meta_np[1 + n_scans:]
     total_words = (int(scan_bits.sum()) + 31) >> 5
-    w = buf_words[:total_words].cpu().numpy().view(np.uint32)
-    scans = []
-    bit_off = 0
-    seg_off = 0
-    for i in range(n_scans):
-        nseg = seg_structure[i]
-        segs = seg_bits[seg_off:seg_off + nseg].astype(np.int64)
-        seg_off += nseg
-        bits = int(scan_bits[i])
-        data = w[bit_off >> 5:(bit_off + bits + 31) >> 5]
-        data = data.astype(">u4").tobytes()
-        scans.append(native.realign_segments(data, segs,
-                                             bit_offset=bit_off & 31))
-        bit_off += bits
-    return scans
+    with tracing.span("finish.host"):
+        w = buf_words[:total_words].cpu().numpy().view(np.uint32)
+        scans = []
+        bit_off = 0
+        seg_off = 0
+        for i in range(n_scans):
+            nseg = seg_structure[i]
+            segs = seg_bits[seg_off:seg_off + nseg].astype(np.int64)
+            seg_off += nseg
+            bits = int(scan_bits[i])
+            data = w[bit_off >> 5:(bit_off + bits + 31) >> 5]
+            data = data.astype(">u4").tobytes()
+            scans.append(native.realign_segments(data, segs,
+                                                 bit_offset=bit_off & 31))
+            bit_off += bits
+        return scans
 
 
 def _finish_scans_device(buf_words, meta, meta_np, n_scans: int,
@@ -364,23 +372,26 @@ def _finish_scans_device(buf_words, meta, meta_np, n_scans: int,
     where given), and the split into scans on the host."""
     out, seg_out, _ = stuff_on_device(buf_words, meta[1 + n_scans:],
                                       seg_structure, meta_np[1 + n_scans:])
-    seg_out_np = seg_out.cpu().numpy()
+    with tracing.span("sync.counts"):
+        seg_out_np = seg_out.cpu().numpy()
     total = int(seg_out_np.sum())
-    if pinned is None:
-        data = out[:total].cpu().numpy()
-    else:
-        host = pinned.take(total, torch.uint8)
-        host.copy_(out[:total])
-        data = host.numpy()
+    with tracing.span("sync.bytes"):
+        if pinned is None:
+            data = out[:total].cpu().numpy()
+        else:
+            host = pinned.take(total, torch.uint8)
+            host.copy_(out[:total])
+            data = host.numpy()
     return split_scans(data, seg_out_np, seg_structure)
 
 
 def split_scans(data, seg_out_bytes, seg_structure) -> List[bytes]:
     """Each scan's bytes of the device finish's output ``data`` (uint8),
     from the final segment byte counts and the per-scan segment counts."""
-    first = np.cumsum([0, *seg_structure[:-1]])
-    ends = np.cumsum(np.add.reduceat(seg_out_bytes, first))
-    return [data[a:b].tobytes() for a, b in zip([0, *ends[:-1]], ends)]
+    with tracing.span("finish.device"):
+        first = np.cumsum([0, *seg_structure[:-1]])
+        ends = np.cumsum(np.add.reduceat(seg_out_bytes, first))
+        return [data[a:b].tobytes() for a, b in zip([0, *ends[:-1]], ends)]
 
 
 def seg_structure(layout, scan_plan):
@@ -400,9 +411,10 @@ def _plan(width: int, height: int, color_type: ColorType,
     number of restart segments."""
     from ..kernels.pipeline import scan_layout
 
-    layout = scan_layout(width, height, color_type, config)
-    scan_plan = build_scan_plan(layout, layout["components"], config)
-    return layout, scan_plan, seg_structure(layout, scan_plan)
+    with tracing.span("plan"):
+        layout = scan_layout(width, height, color_type, config)
+        scan_plan = build_scan_plan(layout, layout["components"], config)
+        return layout, scan_plan, seg_structure(layout, scan_plan)
 
 
 def _ladder(key, budget_hint: int = 0):
@@ -459,8 +471,10 @@ def device_encode_scans(pixels, width: int, height: int,
             return _pack_scans_v2(comp_streams, scan_plan, params, budget)
     for budget in _ladder(key, budget_hint):
         buf, meta = pack(budget)
-        meta_np = meta.cpu().numpy()
+        with tracing.span("sync.meta"):
+            meta_np = meta.cpu().numpy()
         if meta_np[0]:  # overflow: next rung
+            tracing.count("ladder_retries")
             continue
         _memo_put(key, budget)
         return _finish_scans_device(buf, meta, meta_np, len(scan_plan),
@@ -562,21 +576,28 @@ def device_encode_batch_single(images, width: int, height: int,
     px = torch.empty((n, *images[0].shape), dtype=torch.uint8,
                      device=params.dc.device)
     for i, image in enumerate(images):
-        px[i].copy_(torch.from_numpy(image))
+        with tracing.span("upload"):
+            px[i].copy_(torch.from_numpy(image))
     (stream,) = fn_cm(px, width, height, color_type, config,
                       params.reciprocals, params.corrections, batched=True)
     key = ("batch", width, height, color_type, config, n, px.device.type)
     for budget in _ladder(key):
         buf, meta = _pack_scans_v2((stream,), [(0, spec, None)], params,
                                    budget)
-        meta_np = meta.cpu().numpy()
+        with tracing.span("sync.meta"):
+            meta_np = meta.cpu().numpy()
         if meta_np[0]:  # overflow: next rung
+            tracing.count("ladder_retries")
             continue
         _memo_put(key, budget)
-        if pinned is not None:
-            host = pinned.words((int(meta_np[1]) + 31) >> 5)
-            host.copy_(buf[:host.numel()])
-            buf = host
+        n_words = (int(meta_np[1]) + 31) >> 5
+        with tracing.span("sync.stream"):
+            if pinned is None:
+                buf = buf[:n_words].cpu()
+            else:
+                host = pinned.words(n_words)
+                host.copy_(buf[:n_words])
+                buf = host
         # Each image is a "scan" of segs_per_image segments.
         seg_bits = meta_np[2:]
         image_bits = seg_bits.reshape(n, segs_per_image).sum(1)

@@ -41,6 +41,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
+
 # Realigned bytes a window: each int64 temporary of a window takes 16 MiB.
 _WINDOW = 1 << 21
 
@@ -71,8 +73,11 @@ def _markers(seg_structure: tuple, device: torch.device):
     before = 2 * (np.cumsum(emit) - emit)
     idx = np.flatnonzero(emit)
     rst = (0xD0 + ms[idx]).astype(np.uint8)
-    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                 for a in (emit.astype(np.int64), before, idx, rst))
+    out = []
+    for a in (emit.astype(np.int64), before, idx, rst):
+        with tracing.span("upload"):
+            out.append(torch.from_numpy(np.ascontiguousarray(a)).to(device))
+    return tuple(out)
 
 
 def segment_tables(seg_bits: torch.Tensor):
@@ -151,39 +156,43 @@ def device_stuff(buf_words: torch.Tensor, seg_bits: torch.Tensor,
     segment and scan boundaries in ``out``.  Nothing in it waits for the
     device, except the upload of a plan's marker layout at its first
     call."""
-    if buf_words.dtype != torch.int32 or buf_words.dim() != 1:
-        raise ValueError(f"buf_words must be 1-D int32, got "
-                         f"{tuple(buf_words.shape)} {buf_words.dtype}")
-    host_bits = np.asarray(host_bits, np.int64)
-    S = int(sum(seg_structure))
-    if seg_bits.shape != (S,) or host_bits.shape != (S,) or S == 0:
-        raise ValueError(f"{tuple(seg_bits.shape)} segment bit counts for a "
-                         f"plan of {S} segments")
-    if host_bits.min() < 0 or host_bits.sum() > 32 * buf_words.numel():
-        raise ValueError(f"segments of {int(host_bits.sum())} bits in a "
-                         f"stream of {buf_words.numel()} words")
-    dev = buf_words.device
-    emit, markers_before, marker_seg, rst = _markers(tuple(seg_structure), dev)
-    seg_nbytes, byte_start, src_off, end_bit = segment_tables(seg_bits)
-    byte_end = byte_start + seg_nbytes
-    host_end = np.cumsum((host_bits + 7) >> 3)
-    n1 = int(host_end[-1])
+    with tracing.span("finish.device"):
+        if buf_words.dtype != torch.int32 or buf_words.dim() != 1:
+            raise ValueError(f"buf_words must be 1-D int32, got "
+                             f"{tuple(buf_words.shape)} {buf_words.dtype}")
+        host_bits = np.asarray(host_bits, np.int64)
+        S = int(sum(seg_structure))
+        if seg_bits.shape != (S,) or host_bits.shape != (S,) or S == 0:
+            raise ValueError(f"{tuple(seg_bits.shape)} segment bit counts "
+                             f"for a plan of {S} segments")
+        if host_bits.min() < 0 or host_bits.sum() > 32 * buf_words.numel():
+            raise ValueError(f"segments of {int(host_bits.sum())} bits in a "
+                             f"stream of {buf_words.numel()} words")
+        dev = buf_words.device
+        emit, markers_before, marker_seg, rst = _markers(
+            tuple(seg_structure), dev)
+        seg_nbytes, byte_start, src_off, end_bit = segment_tables(seg_bits)
+        byte_end = byte_start + seg_nbytes
+        host_end = np.cumsum((host_bits + 7) >> 3)
+        n1 = int(host_end[-1])
 
-    out = torch.zeros(2 * n1 + 2 * S, dtype=torch.uint8, device=dev)
-    # The running 0xFF count at each segment's end: its differences are
-    # the segments' stuffed zeros (in place of tpuenc's segment_sum).
-    ff_at_end = torch.zeros(S, dtype=torch.int64, device=dev)
-    ff_before = torch.zeros((), dtype=torch.int64, device=dev)
-    for j0 in range(0, n1, _WINDOW):
-        j1 = min(n1, j0 + _WINDOW)
-        aligned, k = realign(buf_words, byte_start, src_off, end_bit, j0, j1)
-        ff = stuff_markers(out, aligned, k, j0, ff_before, markers_before)
-        s0, s1 = np.searchsorted(host_end, (j0, j1), side="right")
-        ff_at_end[s0:s1] = ff.index_select(0, byte_end[s0:s1] - (j0 + 1))
-        ff_before = ff[-1]
-    stuffed = torch.diff(ff_at_end, prepend=ff_at_end.new_zeros(1))
-    seg_out_bytes = seg_nbytes + stuffed + 2 * emit
-    marker_at = torch.cumsum(seg_out_bytes, 0).index_select(0, marker_seg) - 2
-    out.index_fill_(0, marker_at, 0xFF)
-    out.index_copy_(0, marker_at + 1, rst)
-    return out, seg_out_bytes, seg_out_bytes.sum()
+        out = torch.zeros(2 * n1 + 2 * S, dtype=torch.uint8, device=dev)
+        # The running 0xFF count at each segment's end: its differences are
+        # the segments' stuffed zeros (in place of tpuenc's segment_sum).
+        ff_at_end = torch.zeros(S, dtype=torch.int64, device=dev)
+        ff_before = torch.zeros((), dtype=torch.int64, device=dev)
+        for j0 in range(0, n1, _WINDOW):
+            j1 = min(n1, j0 + _WINDOW)
+            aligned, k = realign(buf_words, byte_start, src_off, end_bit,
+                                 j0, j1)
+            ff = stuff_markers(out, aligned, k, j0, ff_before, markers_before)
+            s0, s1 = np.searchsorted(host_end, (j0, j1), side="right")
+            ff_at_end[s0:s1] = ff.index_select(0, byte_end[s0:s1] - (j0 + 1))
+            ff_before = ff[-1]
+        stuffed = torch.diff(ff_at_end, prepend=ff_at_end.new_zeros(1))
+        seg_out_bytes = seg_nbytes + stuffed + 2 * emit
+        marker_at = torch.cumsum(seg_out_bytes, 0).index_select(
+            0, marker_seg) - 2
+        out.index_fill_(0, marker_at, 0xFF)
+        out.index_copy_(0, marker_at + 1, rst)
+        return out, seg_out_bytes, seg_out_bytes.sum()

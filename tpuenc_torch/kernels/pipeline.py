@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..core.types import (
     ColorType,
     EncoderConfig,
@@ -180,24 +181,26 @@ def fn_cm(pixels, width: int, height: int, color_type: ColorType,
     streams with N times the columns, the images' streams one after
     another; K1 runs once per component for the whole batch.
     """
-    components, grid, n, samples = _sample_streams(
-        pixels, width, height, color_type, config, batched)
-    max_h, max_v = max_sampling(components)
-    streams = []
-    for comp, x_cm in zip(components, samples):
-        t = comp.quantization_table
-        streams.append(fdct_quantize(x_cm, reciprocals[t], corrections[t]))
-    if config.mode() == "interleaved":
-        return (_mcu_order(streams, components, grid, n),)
-    cropped = []
-    for comp, x in zip(components, streams):
-        cv = comp.vertical_sampling_factor
-        ch = comp.horizontal_sampling_factor
-        rows = _cdiv(_cdiv(height, 8), max_v // cv)
-        cols = _cdiv(_cdiv(width, 8), max_h // ch)
-        x = x.view(64, n, grid[0] * cv, grid[1] * ch)[:, :, :rows, :cols]
-        cropped.append(x.reshape(64, n * rows * cols))
-    return tuple(cropped)
+    with tracing.span("transform"):
+        components, grid, n, samples = _sample_streams(
+            pixels, width, height, color_type, config, batched)
+        max_h, max_v = max_sampling(components)
+        streams = []
+        for comp, x_cm in zip(components, samples):
+            t = comp.quantization_table
+            streams.append(fdct_quantize(x_cm, reciprocals[t],
+                                         corrections[t]))
+        if config.mode() == "interleaved":
+            return (_mcu_order(streams, components, grid, n),)
+        cropped = []
+        for comp, x in zip(components, streams):
+            cv = comp.vertical_sampling_factor
+            ch = comp.horizontal_sampling_factor
+            rows = _cdiv(_cdiv(height, 8), max_v // cv)
+            cols = _cdiv(_cdiv(width, 8), max_h // ch)
+            x = x.view(64, n, grid[0] * cv, grid[1] * ch)[:, :, :rows, :cols]
+            cropped.append(x.reshape(64, n * rows * cols))
+        return tuple(cropped)
 
 
 def fn_cm_samples(pixels, width: int, height: int, color_type: ColorType,
@@ -211,7 +214,8 @@ def fn_cm_samples(pixels, width: int, height: int, color_type: ColorType,
     if config.mode() != "interleaved":
         raise ValueError(f"fn_cm_samples takes an interleaved config, got "
                          f"{config.mode()}")
-    components, grid, n, samples = _sample_streams(
-        pixels, width, height, color_type, config, batched)
-    return _mcu_order([x.to(torch.int16) for x in samples], components, grid,
-                      n)
+    with tracing.span("transform"):
+        components, grid, n, samples = _sample_streams(
+            pixels, width, height, color_type, config, batched)
+        return _mcu_order([x.to(torch.int16) for x in samples], components,
+                          grid, n)

@@ -45,6 +45,7 @@ from ..shard.dryrun import dryrun_multichip
 from ..shard.encode import ShardedEncoder, gather
 from ..shard.mesh import make_mesh
 from ..shard.stripes import general_pack, stripe_encode_step
+from ..tracing import kernel_wrappers
 
 
 def case_images(case):
@@ -99,17 +100,6 @@ def _refused(call):
         return call()
     except ValueError as e:
         return f"ValueError: {e}"
-
-
-def kernel_wrappers():
-    """Every kernel wrapper, with its launch counter (K1-K9)."""
-    from ..entropy import pallas_hist as ph
-    from ..entropy import pallas_pack as pk
-    from ..kernels import pallas_fdct
-
-    return [pallas_fdct.fdct_quantize, pk.pack_blocks, pk.merge_chunks,
-            pk.fold_rows, pk.concat_rows, pk.pack_acbands, ph.hist_count,
-            pk.fused_sample_pack, ph.hist_sym]
 
 
 def _run(case, mesh, device):
