@@ -87,12 +87,13 @@ Phases, each printing its own lines and its wall seconds:
    1,048,576-block pack chunk and K7 at the path's shapes against their
    plain versions, as phase 3;
 10. the device finish (``entropy.device_stuff``), which the whole-image
-   routes run, beside the host finish it replaced, on the three flagship
-   routes (split, fused, progressive + optimized): on each route's stream
-   from phases 5-7, the host finish's steps (a)-(c) beside the device
-   finish's parts (the device ms of pass 1 and of both passes, the read of
-   the final segment byte counts, the page-locked copy of the finished
-   bytes, the split into scans, the whole finish, its peak memory); one
+   routes and the single-program batch run, beside the host finish it
+   replaced, on the three flagship routes (split, fused, progressive +
+   optimized): on each route's stream from phases 5-7, the host finish's
+   steps (a)-(c) beside the device finish's parts (the device ms of pass 1
+   and of both passes, the read of the final segment byte counts, the
+   page-locked copy of the finished bytes, the split into scans, the whole
+   finish, its peak memory); one
    encode on "device-v2" / "device-v2-fused" with the launch counts at 0
    just before it, its bytes and rung (budget memo cleared) equal to the
    host finish's; warm end to end in turns (host, device, device, host);
@@ -836,7 +837,7 @@ def host_finish_parts(buf, meta, meta_np, n_scans, seg_structure):
             bit_off += bits
         runs["b"].append(tb)
         runs["c"].append(tc)
-    if scans != de._finish_scans_v2(buf, meta_np, n_scans, seg_structure):
+    if scans != de._finish_scans_v2(buf, seg_bits, seg_structure):
         raise AssertionError("the host finish's steps differ from the finish")
     ms = {k: statistics.median(v[1:]) * 1e3 for k, v in runs.items()}
     return {"host (a): pageable D2H of the stream (host clock)": ms["a"],
@@ -910,7 +911,7 @@ def device_finish_parts(buf, meta, meta_np, n_scans, seg_structure, want):
     data = copy()
     st["host split into scans (host clock)"] = host_median(
         lambda: de.split_scans(data, seg_out_np, seg_structure))[0] * 1e3
-    finish = (buf, meta, meta_np, n_scans, seg_structure, pinned)
+    finish = (buf, seg_bits, host_bits, seg_structure, pinned)
     st["device finish, whole (host clock)"] = host_median(
         lambda: de._finish_scans_device(*finish))[0] * 1e3
     del out, seg_out
@@ -937,15 +938,15 @@ def finish_peak(fn):
 
 @contextlib.contextmanager
 def host_finish():
-    """The whole-image routes with the host finish
+    """Every route that finishes on the device with the host finish
     (``device_encode._finish_scans_v2``) in the device finish's place,
     for phase 10's comparisons."""
     from tpuenc_torch.entropy import device_encode as de
 
     device = de._finish_scans_device
 
-    def host(buf, meta, meta_np, n_scans, segs, pinned=None):
-        return de._finish_scans_v2(buf, meta_np, n_scans, segs)
+    def host(buf, seg_bits, host_bits, segs, pinned=None):
+        return de._finish_scans_v2(buf, host_bits, segs)
 
     de._finish_scans_device = host
     try:
@@ -1305,8 +1306,10 @@ def batch_stage_times(dev, enc, imgs, w, h):
     rung: the upload of the batch (the route's pageable one beside one
     staged in page-locked memory), the batch's coefficients (K1 x3), P1
     (DC differences + K2), P2-P4, pack + meta (CUDA events, median of 10),
-    the meta copy, the stream's copy into the encoder's page-locked buffer
-    and the host finish per image (host clock, median of 5)."""
+    the meta copy, then the route's device finish of the whole batch into
+    the encoder's page-locked buffer beside the host finish it replaced
+    (the stream's pageable copy and the realigner image by image), each on
+    the host clock (median of 5), and their bytes equal."""
     from tpuenc_torch import ColorType
     from tpuenc_torch.entropy import device_encode as de
     from tpuenc_torch.entropy import pallas_pack as pk
@@ -1338,16 +1341,22 @@ def batch_stage_times(dev, enc, imgs, w, h):
     buf, meta = de._pack_scans_v2((stream,), plan, params, budget)
     st["meta: D2H of the overflow flag and segment bits"] = cuda_ms(meta.cpu)
     meta_np = meta.cpu().numpy()
-    host = enc._pinned.words((int(meta_np[1]) + 31) >> 5)
-    med, _ = host_median(lambda: host.copy_(buf[:host.numel()]))
-    st[f"D2H of the stream into page-locked memory, {4 * host.numel()} bytes "
-       f"(host clock)"] = med * 1e3
-    seg_bits = meta_np[2:]
-    image_meta = np.concatenate([meta_np[:1],
-                                 seg_bits.reshape(n, spi).sum(1), seg_bits])
-    med, _ = host_median(lambda: de._finish_scans_v2(host, image_meta, n,
-                                                     [spi] * n))
-    st["host: realign/stuff, per image (host clock)"] = med * 1e3 / n
+    seg_bits, host_bits, segs = meta[2:], meta_np[2:], [spi] * n
+
+    def device():
+        return de._finish_scans_device(buf, seg_bits, host_bits, segs,
+                                       enc._pinned)
+
+    def host():
+        return de._finish_scans_v2(buf, host_bits, segs)
+
+    st["device finish of the batch, the route's (host clock)"] = \
+        host_median(device)[0] * 1e3
+    st["host finish of the batch, the one replaced (host clock)"] = \
+        host_median(host)[0] * 1e3
+    if device() != host():
+        raise AssertionError("the batch's device finish differs from the "
+                             "host finish")
     for k, v in st.items():
         print(f"    {k:56s} {v:9.4f} ms")
 
@@ -1595,6 +1604,7 @@ def phase_batch(dev, flagship_bytes):
 # 4,096 rows.
 CONFIG5 = 16384
 CONFIG5_C_ROWS = 4096
+CONFIG5_CHUNKS = -(-CONFIG5 // (64 * 16))  # 64 MCU rows of 16 pixel rows
 
 
 def make_ycck_rows(w, h, y0, n):
@@ -1774,7 +1784,6 @@ def config5_chunked(dev, img, keep):
     n_chunks = sum(s.name == "transform" for s in req.spans)
     packs = [(s.ints["blocks"], s.ints["rung"]) for s in req.spans
              if s.name == "pack"]
-    want_chunks = -(-h // (64 * 16))  # 64 MCU rows of 16 pixel rows
     print(f"  (a) {len(out_a)} bytes, path {enc.last_encode_path}, rung "
           f"{enc.last_budget}, {n_chunks} chunks, packs (blocks, rung) "
           f"{packs}, peak device memory {peak_a / 2**20:.1f} MiB, "
@@ -1785,9 +1794,9 @@ def config5_chunked(dev, img, keep):
     keep.update(img=img, a=(len(out_a), hashlib.sha256(out_a).hexdigest()))
     want = {"fdct_quantize": 4 * n_chunks, **expected_pack_launches(packs)}
     got = {k: launches[k] for k in want}
-    if got != want or n_chunks != want_chunks:
+    if got != want or n_chunks != CONFIG5_CHUNKS:
         raise AssertionError(f"(a) launches {got}, want {want} over "
-                             f"{want_chunks} chunks")
+                             f"{CONFIG5_CHUNKS} chunks")
     if req.launches != launches:
         raise AssertionError(f"(a) the request's launches {req.launches}, "
                              f"the wrappers' {launches}")
@@ -1925,8 +1934,8 @@ def phase_config5(dev, flagship_bytes, progressive_bytes, keep):
             out_d.count(b"\xff\xda") != 4:
         raise AssertionError("(d) not 4 scans on the chunked multipass path")
     check_jpeg(out_d)
-    if launches_d["hist_count"] != 4 * want_chunks or \
-            launches_d["fdct_quantize"] != 4 * want_chunks:
+    if launches_d["hist_count"] != 4 * CONFIG5_CHUNKS or \
+            launches_d["fdct_quantize"] != 4 * CONFIG5_CHUNKS:
         raise AssertionError("(d) K1 and K7 not 4 per chunk")
     check_launches(launches_d, ["fdct_quantize", "hist_count", "pack_blocks",
                                 "merge_chunks", "concat_rows"],
@@ -2203,15 +2212,15 @@ def near_limit_finish(dev):
     if enc.last_encode_path != "device-v2":
         raise AssertionError(f"ran on {enc.last_encode_path}")
     check_jpeg(out)
-    buf, meta, meta_np, n_scans, segs, pinned = args
-    seg_bits = meta_np[1 + n_scans:].astype(np.int64)
+    buf, _, host_bits, segs, pinned = args
+    seg_bits = host_bits.astype(np.int64)
     n1, S = int(((seg_bits + 7) >> 3).sum()), len(seg_bits)
     bound = 2 * n1 + 2 * S + 16 * 8 * ds._WINDOW
     t0 = time.perf_counter()
     scans = device(*args)
     dev_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    want = de._finish_scans_v2(buf, meta_np, n_scans, segs)
+    want = de._finish_scans_v2(buf, host_bits, segs)
     host_s = time.perf_counter() - t0
     if scans != want:
         raise AssertionError("near the limit: the device finish differs")

@@ -84,6 +84,103 @@ def test_batch_matches_tpuenc_and_singles(name):
     assert got == singles
 
 
+def _restarts(scan):
+    """The numbers of the RST markers in one scan's finished bytes, in
+    order (a stuffed 0xFF is followed by 0x00, a marker's by 0xD0-0xD7)."""
+    b = np.frombuffer(scan, np.uint8)
+    at = np.flatnonzero((b[:-1] == 0xFF) & (b[1:] >= 0xD0) & (b[1:] <= 0xD7))
+    return (b[at + 1] - 0xD0).tolist()
+
+
+def _ff_images(n, w, h):
+    """Alternating extremes, 0xFF-dense codes at q100, shifted a column
+    further in each image."""
+    px = np.zeros((h, w, 3), np.uint8)
+    px[::2] = 255
+    px[:, ::2, 1] = 255
+    return [np.roll(px, i, axis=1) for i in range(n)]
+
+
+# name: (n, w, h, quality, sampling factor, restart interval, content,
+# the device finish's window in realigned bytes, None for its own)
+FINISH_CASES = {
+    "no_restart": (3, 66, 34, 90, "F_1_1", 0, "noise", None),
+    # 48 MCUs an image: 12 segments, markers RST0-RST7, RST0-RST2.
+    "restart_divides": (3, 64, 48, 90, "F_1_1", 4, "noise", None),
+    # 4:2:0, 15 MCUs an image: 5 segments.
+    "sf420_restart3": (3, 80, 48, 85, "F_2_2", 3, "noise", None),
+    # 32 segments an image, the finish over many windows.
+    "windows": (4, 64, 64, 100, "F_1_1", 2, "ff", 1024),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FINISH_CASES))
+def test_single_program_finishes_on_the_device(name, monkeypatch):
+    """The single program's one device finish over every image of the
+    batch, each image a scan of its segments: the files are tpuenc's
+    encode_batch's, byte for byte; the images' finished bytes are the host
+    finish's (``_finish_scans_v2``) on the same stream; each image's RST
+    markers count from 0, and none follows an image's last segment.  With
+    the finish's window cut to a few KiB, the finish crosses many windows;
+    then it runs again on the same stream with its window edges on an
+    image boundary, on a segment boundary and inside a run of 0xFF
+    bytes."""
+    from tpuenc_torch.entropy import device_stuff as ds
+
+    n, w, h, q, sf, restart, content, window = FINISH_CASES[name]
+    imgs = (_ff_images(n, w, h) if content == "ff"
+            else _images(n, w, h, 3, seed=len(name)))
+    if window:
+        monkeypatch.setattr(ds, "_WINDOW", window)
+    seen = []
+    finish = de._finish_scans_device
+
+    def recorded(buf, seg_bits, host_bits, segs, pinned=None):
+        scans = finish(buf, seg_bits, host_bits, segs, pinned)
+        seen.append((buf, seg_bits, host_bits, segs, scans))
+        return scans
+
+    monkeypatch.setattr(de, "_finish_scans_device", recorded)
+
+    def setup(enc):
+        enc.set_sampling_factor(type(enc.sampling_factor())[sf])
+        enc.set_restart_interval(restart)
+        return enc
+
+    enc = setup(tt.Encoder(q, device="cpu"))
+    got = enc.encode_batch(imgs, w, h, tt.ColorType.RGB)
+    assert enc.last_encode_path == "device-batch"
+    assert got == setup(tpuenc.Encoder(q)).encode_batch(
+        imgs, w, h, tpuenc.ColorType.RGB)
+    ((buf, seg_bits, host_bits, segs, scans),) = seen
+    per = segs[0]
+    assert segs == [per] * n and len(host_bits) == n * per
+    assert (per > 1) == bool(restart)
+    assert scans == de._finish_scans_v2(buf, host_bits, segs)
+    for scan in scans:
+        assert _restarts(scan) == [i % 8 for i in range(per - 1)]
+    if not window:
+        return
+    nbytes, byte_start, src_off, end_bit = ds.segment_tables(seg_bits)
+    n1 = int(nbytes.sum())
+    assert n1 > 8 * window
+    # The stream with a run of 0xFF bytes in it: 32 bytes of ones written
+    # over the middle of its words.
+    ones = buf.clone()
+    ones[int(host_bits.sum()) >> 6:][:8] = -1
+    aligned = ds.realign(ones, byte_start, src_off, end_bit, 0, n1)[0]
+    in_run = np.flatnonzero((aligned[:-1] == 0xFF) & (aligned[1:] == 0xFF))
+    starts = byte_start.numpy()
+    # A window of e bytes puts an edge at e: realigned byte e starts a
+    # window, and e - 1 ends the one before.
+    edges = {"image": (buf, starts[per]), "segment": (buf, starts[3]),
+             "0xFF run": (ones, in_run[len(in_run) // 2] + 1)}
+    for where, (words, edge) in edges.items():
+        monkeypatch.setattr(ds, "_WINDOW", int(edge))
+        assert finish(words, seg_bits, host_bits, segs) == \
+            de._finish_scans_v2(words, host_bits, segs), where
+
+
 @pytest.mark.parametrize("restart,route", [
     (0, "device-batch"),                           # one program, K1 + K2
     (7, "device-batch-per-image"),                 # per image through K8

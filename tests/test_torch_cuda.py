@@ -781,8 +781,8 @@ def test_batch_on_a_side_stream(dev, kw):
 
 
 def test_pinned_staging_reused_across_batches(dev):
-    """The single program's page-locked buffer for its stream is allocated
-    once and reused: the same images again, or a smaller batch of them,
+    """The single program's page-locked buffer for its finished bytes is
+    allocated once and reused: the same images again, or a smaller batch of them,
     allocate nothing; a larger batch grows it; the files stay per-image
     encode()'s throughout."""
     from tpuenc_torch import ColorType
@@ -949,11 +949,11 @@ DEVICE_FINISH = {
 }
 
 
-def _host_finish(buf, meta, meta_np, n_scans, segs, pinned=None):
+def _host_finish(buf, seg_bits, host_bits, segs, pinned=None):
     """The host finish in the device finish's place."""
     from tpuenc_torch.entropy import device_encode as de
 
-    return de._finish_scans_v2(buf, meta_np, n_scans, segs)
+    return de._finish_scans_v2(buf, host_bits, segs)
 
 
 def _recorded_finish(monkeypatch):
@@ -965,14 +965,14 @@ def _recorded_finish(monkeypatch):
     seen = []
     finish = de._finish_scans_device
 
-    def recorded(buf, meta, meta_np, n_scans, segs, pinned=None):
+    def recorded(buf, seg_bits, host_bits, segs, pinned=None):
         _dirty_allocator(buf.device)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        scans = finish(buf, meta, meta_np, n_scans, segs, pinned)
+        scans = finish(buf, seg_bits, host_bits, segs, pinned)
         peak = torch.cuda.max_memory_allocated() - base
-        seen.append((buf, meta, meta_np, n_scans, segs, scans, peak))
+        seen.append((buf, seg_bits, host_bits, segs, scans, peak))
         return scans
 
     monkeypatch.setattr(de, "_finish_scans_device", recorded)
@@ -1009,9 +1009,9 @@ def test_device_finish_on_cuda(dev, name, monkeypatch):
     assert enc.encode(px, w, h, ColorType.RGB) == want
     assert enc.last_encode_path == ("device-v2-fused" if kw.get("fused")
                                     else "device-v2")
-    ((buf, meta, meta_np, n_scans, segs, scans, _),) = seen
+    ((buf, seg_bits, host_bits, segs, scans, _),) = seen
     assert buf.is_cuda
-    assert finish(buf.cpu(), meta.cpu(), meta_np, n_scans, segs) == scans
+    assert finish(buf.cpu(), seg_bits.cpu(), host_bits, segs) == scans
 
 
 def test_device_finish_memory_near_the_block_limit(dev, monkeypatch):
@@ -1032,12 +1032,12 @@ def test_device_finish_memory_near_the_block_limit(dev, monkeypatch):
     enc = Encoder(90, device=dev)
     enc.encode(px, w, h, ColorType.RGB)
     assert enc.last_encode_path == "device-v2"
-    ((buf, meta, meta_np, n_scans, segs, scans, peak),) = seen
-    seg_bits = meta_np[1 + n_scans:].astype(np.int64)
+    ((buf, _, host_bits, segs, scans, peak),) = seen
+    seg_bits = host_bits.astype(np.int64)
     n1, S = int(((seg_bits + 7) >> 3).sum()), len(seg_bits)
     assert n1 > 100 << 20
     assert peak <= 2 * n1 + 2 * S + 16 * 8 * ds._WINDOW
-    assert scans == de._finish_scans_v2(buf, meta_np, n_scans, segs)
+    assert scans == de._finish_scans_v2(buf, host_bits, segs)
 
 
 def test_all_ff_stream_on_cuda(dev):

@@ -192,7 +192,8 @@ def test_pack_scans_meta_matches(name):
     np.testing.assert_array_equal(tbuf[:n].numpy(),
                                   np.asarray(jbuf)[:n].view(np.int32))
     want = jde._finish_scans_v2(np.asarray(jbuf), jmeta, jplan, seg_structure)
-    got = tde._finish_scans_v2(tbuf, tmeta.numpy(), len(plan), seg_structure)
+    got = tde._finish_scans_v2(tbuf, tmeta.numpy()[1 + len(plan):],
+                               seg_structure)
     assert len(got) == len(plan) > 1
     assert got == want
 

@@ -6,9 +6,9 @@ arithmetic throughout).
 The port sizes its passes from the segment bit counts, so it has no
 overflow case: a stream past ``tpuenc``'s slack, which ``tpuenc`` hands
 back to the host finish, comes out of the port's passes themselves.  The
-whole-image routes finish on the device; the host finish stays the
-single-program batch's and the chunked paths', and is these tests'
-reference."""
+whole-image routes and the single-program batch finish on the device;
+the host finish (``_finish_scans_v2``), on no route, is these tests'
+reference, and the chunked paths keep the streaming stuffer."""
 
 from __future__ import annotations
 
@@ -163,10 +163,10 @@ def finishes(monkeypatch):
     calls = []
     device = tde._finish_scans_device
 
-    def checked(buf, meta, meta_np, n_scans, segs, pinned=None):
-        scans = device(buf, meta, meta_np, n_scans, segs, pinned)
-        assert scans == tde._finish_scans_v2(buf, meta_np, n_scans, segs)
-        calls.append(n_scans)
+    def checked(buf, seg_bits, host_bits, segs, pinned=None):
+        scans = device(buf, seg_bits, host_bits, segs, pinned)
+        assert scans == tde._finish_scans_v2(buf, host_bits, segs)
+        calls.append(len(segs))
         return scans
 
     monkeypatch.setattr(tde, "_finish_scans_device", checked)
@@ -258,9 +258,9 @@ def _encoder(fused=False, restart=0, scans=None):
     ({"scans": 3}, "device-v2", "device-batch-per-image"),
 ])
 def test_routes_and_their_finish(kw, single, batch, finishes):
-    """encode, and encode_batch's per-image route, finish on the device;
-    the single program finishes on the host; each batch file is
-    encode's."""
+    """encode and both of encode_batch's routes finish on the device: the
+    per-image route once an image, the single program once for the whole
+    batch, each image a scan; each batch file is encode's."""
     rng = np.random.default_rng(5)
     imgs = [rng.integers(0, 256, (24, 40, 3), np.uint8) for _ in range(2)]
     enc = _encoder(**kw)
@@ -269,7 +269,7 @@ def test_routes_and_their_finish(kw, single, batch, finishes):
     assert len(finishes) == 2
     assert enc.encode_batch(imgs, 40, 24, tt.ColorType.RGB) == want
     assert enc.last_encode_path == batch
-    assert len(finishes) == (2 if batch == "device-batch" else 4)
+    assert finishes[2:] == ([2] if batch == "device-batch" else finishes[:2])
 
 
 @pytest.mark.parametrize("scans,route", [

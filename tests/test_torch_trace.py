@@ -31,7 +31,7 @@ RGB = tt.ColorType.RGB
 # Every span name the port opens, documented in tracing's docstring.
 STAGES = {"encode", "plan", "upload", "transform", "histograms", "tables",
           "pack", "sync.meta", "sync.hist", "sync.counts", "sync.bytes",
-          "sync.stream", "sync.words", "sync.rows", "finish.device",
+          "sync.words", "sync.rows", "finish.device",
           "finish.host", "finish.stream", "assemble"}
 
 
@@ -83,8 +83,8 @@ ROUTES = [
       "pack", "sync.meta", "finish.device", "sync.counts", "sync.bytes",
       "assemble"}),
     ("batch", {}, _batch, "encode_batch", "device-batch",
-     {"plan", "upload", "transform", "pack", "sync.meta", "sync.stream",
-      "finish.host", "assemble"}),
+     {"plan", "upload", "transform", "pack", "sync.meta", "finish.device",
+      "sync.counts", "sync.bytes", "assemble"}),
     ("chunked", {}, _plain, "encode", "device-chunked",
      {"plan", "transform", "upload", "pack", "sync.meta", "sync.words",
       "finish.stream", "assemble"}),

@@ -195,9 +195,8 @@ class Encoder:
         # quality), and the default Huffman tables' tensors.
         self._quant: dict = {}
         self._default_huffman = None
-        # The page-locked buffer on a CUDA device for the single program's
-        # stream and the device finish's bytes, made at its first use
-        # (entropy.device_encode.PinnedBuffer).
+        # The page-locked buffer on a CUDA device for the device finish's
+        # bytes, made at its first use (entropy.device_encode.PinnedBuffer).
         self._pinned = None
         # Which path produced the last output: encode()'s "device-v2" (the
         # counterpart of tpuenc's v2 device packer), "device-v2-fused"

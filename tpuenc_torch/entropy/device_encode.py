@@ -9,12 +9,11 @@ P2-P4 merge of all scans' block strings in plan order, and a small
 goes from its samples (``kernels.pipeline.fn_cm_samples``) through K8,
 which transforms, quantizes and packs each block in one pass, to the same
 merge.  The host reads ``meta`` (overflow flag, scan bits,
-per-segment bits).  One image's scans are then finished on the encode
-device (``entropy.device_stuff``: byte-align, 1-pad, 0xFF-stuff, RST
-markers), and the host copies the finished bytes and splits them into
-scans.  A batch's single program instead copies the first
-``total_words`` words of the stream and finishes each image's restart
-segments from its bit offset with the native realigner.
+per-segment bits).  The scans are then finished on the encode device
+(``entropy.device_stuff``: byte-align, 1-pad, 0xFF-stuff, RST markers),
+and the host copies the finished bytes and splits them into scans.  A
+batch's single program finishes the same way, in one pass over every
+image: each image is a "scan" of its restart segments.
 
 A batch of same-shape images takes one of two routes, chosen up front
 (:func:`batch_route`): one program over every image's blocks
@@ -332,27 +331,26 @@ def _pack_fused(samples, spec: ScanSpec, qtabs, params: EncodeParams,
         return out, torch.cat([(ovf | ovf2).to(torch.int64), bits, segs])
 
 
-def _finish_scans_v2(buf_words, meta_np, n_scans: int,
-                     seg_structure) -> List[bytes]:
-    """Host finishing: copy the first ``total_words`` words of the raw
-    stream (all scans' bits, concatenated in plan order) and realign /
-    pad / stuff each scan's segments from its bit offset.  Each scan's
-    words are byteswapped and finished on their own, one scan at a time,
-    so that they are still in the cache when the realigner reads them
-    (a batch's single program passes its images as the scans)."""
-    scan_bits = meta_np[1:1 + n_scans]
-    seg_bits = meta_np[1 + n_scans:]
-    total_words = (int(scan_bits.sum()) + 31) >> 5
+def _finish_scans_v2(buf_words, seg_bits, seg_structure) -> List[bytes]:
+    """The host finish, which no route runs: the reference that the tests
+    and ``chip_smoke.py`` hold the device finish to.  Copy the used words
+    of the raw stream (every scan's bits, concatenated in plan order) and
+    realign / pad / stuff each scan's segments from its bit offset with
+    the native realigner, one scan at a time.  ``seg_bits``: (S,) unpadded
+    segment bit counts on the host; ``seg_structure``: each scan's number
+    of segments."""
+    seg_bits = np.asarray(seg_bits, np.int64)
+    scan_bits = np.add.reduceat(seg_bits, np.cumsum([0, *seg_structure[:-1]]))
+    total_words = (int(seg_bits.sum()) + 31) >> 5
     with tracing.span("finish.host"):
         w = buf_words[:total_words].cpu().numpy().view(np.uint32)
         scans = []
         bit_off = 0
         seg_off = 0
-        for i in range(n_scans):
-            nseg = seg_structure[i]
-            segs = seg_bits[seg_off:seg_off + nseg].astype(np.int64)
+        for nseg, bits in zip(seg_structure, scan_bits):
+            segs = seg_bits[seg_off:seg_off + nseg]
             seg_off += nseg
-            bits = int(scan_bits[i])
+            bits = int(bits)
             data = w[bit_off >> 5:(bit_off + bits + 31) >> 5]
             data = data.astype(">u4").tobytes()
             scans.append(native.realign_segments(data, segs,
@@ -361,17 +359,18 @@ def _finish_scans_v2(buf_words, meta_np, n_scans: int,
         return scans
 
 
-def _finish_scans_device(buf_words, meta, meta_np, n_scans: int,
-                         seg_structure, pinned=None) -> List[bytes]:
+def _finish_scans_device(buf_words, seg_bits, host_bits, seg_structure,
+                         pinned=None) -> List[bytes]:
     """Device finishing (``tpuenc``'s ``_finish_scans_v2_device``): both
     passes of :func:`entropy.device_stuff.device_stuff` on the stream's
-    device, sized from the segment bits the host has already read
-    (``meta_np``) and fed the device's own copy of them (``meta``).  Then
+    device over ``seg_bits``, the (S,) unpadded segment bit counts on that
+    device, sized from ``host_bits``, the same counts that the host has
+    already read; ``seg_structure``: each scan's number of segments.  Then
     one read of the (S,) final segment byte counts, one copy of the
     ``total`` finished bytes (into ``pinned``, a :class:`PinnedBuffer`,
     where given), and the split into scans on the host."""
-    out, seg_out, _ = stuff_on_device(buf_words, meta[1 + n_scans:],
-                                      seg_structure, meta_np[1 + n_scans:])
+    out, seg_out, _ = stuff_on_device(buf_words, seg_bits, seg_structure,
+                                      host_bits)
     with tracing.span("sync.counts"):
         seg_out_np = seg_out.cpu().numpy()
     total = int(seg_out_np.sum())
@@ -477,7 +476,8 @@ def device_encode_scans(pixels, width: int, height: int,
             tracing.count("ladder_retries")
             continue
         _memo_put(key, budget)
-        return _finish_scans_device(buf, meta, meta_np, len(scan_plan),
+        n = len(scan_plan)
+        return _finish_scans_device(buf, meta[1 + n:], meta_np[1 + n:],
                                     segs, pinned), budget
     raise RuntimeError(
         f"every budget rung overflowed ({width}x{height} {color_type})"
@@ -519,12 +519,11 @@ def batch_route(n: int, width: int, height: int, color_type: ColorType,
 
 
 class PinnedBuffer:
-    """A page-locked host buffer that the single program copies its
-    stream words into, and the device finish its finished bytes, grown to
-    the power of two that holds the largest copy asked of it and reused
-    after that: ``cudaHostAlloc`` of tens of MB costs milliseconds, and a
-    copy into pageable memory runs several times slower than one into
-    page-locked memory."""
+    """A page-locked host buffer that the device finish copies its
+    finished bytes into, grown to the power of two that holds the largest
+    copy asked of it and reused after that: ``cudaHostAlloc`` of tens of
+    MB costs milliseconds, and a copy into pageable memory runs several
+    times slower than one into page-locked memory."""
 
     def __init__(self):
         self._buf = None
@@ -537,10 +536,6 @@ class PinnedBuffer:
             self._buf = torch.empty(size, dtype=torch.uint8, pin_memory=True)
         return self._buf[:nbytes].view(dtype)
 
-    def words(self, n_words: int) -> torch.Tensor:
-        """The first ``n_words`` int32 words of the buffer."""
-        return self.take(n_words, torch.int32)
-
 
 def device_encode_batch_single(images, width: int, height: int,
                                color_type: ColorType, config: EncoderConfig,
@@ -551,17 +546,18 @@ def device_encode_batch_single(images, width: int, height: int,
     ``images``: N (H, W[, C]) uint8 numpy arrays of one shape, whose batch
     :func:`batch_route` sends to :data:`SINGLE_PROGRAM` (else
     ``ValueError``); ``pinned``: a :class:`PinnedBuffer` for the copy of
-    the stream on a CUDA device, None on the CPU.  Each image is uploaded
-    into its slot of one (N, H, W[, C]) tensor; one coefficient pass over
-    the batch (K1 once per component), the DC differences and K2 over all
-    N x mcu_count x blocks_per_mcu blocks, with restart segments of the
-    interval or of one image, so the DC predictor resets at every image's
-    first block, and one P2-P4 merge, at each rung of the batch's own
-    ladder (memoised under the batch's size).  Then one ``meta`` read, one
-    copy of the stream, and each image's segments finished from its
-    running bit offset, so no RST marker falls between images and each
-    image's markers count from 0.  It never runs K8.  Returns
-    ``(per-image [scan bytes], budget)``."""
+    the finished bytes on a CUDA device, None on the CPU.  Each image is
+    uploaded into its slot of one (N, H, W[, C]) tensor; one coefficient
+    pass over the batch (K1 once per component), the DC differences and K2
+    over all N x mcu_count x blocks_per_mcu blocks, with restart segments
+    of the interval or of one image, so the DC predictor resets at every
+    image's first block, and one P2-P4 merge, at each rung of the batch's
+    own ladder (memoised under the batch's size).  Then one ``meta`` read
+    and one device finish over the whole stream
+    (:func:`_finish_scans_device`), each image a "scan" of its segments,
+    so no RST marker falls between images and each image's markers count
+    from 0.  It never runs K8.  Returns ``(per-image [scan bytes],
+    budget)``."""
     from ..kernels.pipeline import fn_cm
 
     n = len(images)
@@ -590,20 +586,9 @@ def device_encode_batch_single(images, width: int, height: int,
             tracing.count("ladder_retries")
             continue
         _memo_put(key, budget)
-        n_words = (int(meta_np[1]) + 31) >> 5
-        with tracing.span("sync.stream"):
-            if pinned is None:
-                buf = buf[:n_words].cpu()
-            else:
-                host = pinned.words(n_words)
-                host.copy_(buf[:n_words])
-                buf = host
-        # Each image is a "scan" of segs_per_image segments.
-        seg_bits = meta_np[2:]
-        image_bits = seg_bits.reshape(n, segs_per_image).sum(1)
-        scans = _finish_scans_v2(
-            buf, np.concatenate([meta_np[:1], image_bits, seg_bits]), n,
-            [segs_per_image] * n)
+        # meta is [overflow, the stream's bits, its segments' bits...].
+        scans = _finish_scans_device(buf, meta[2:], meta_np[2:],
+                                     [segs_per_image] * n, pinned)
         return [[scan] for scan in scans], budget
     raise RuntimeError(
         f"every budget rung overflowed ({n} x {width}x{height} {color_type})"

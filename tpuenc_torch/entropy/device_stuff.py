@@ -2,10 +2,12 @@
 the encode device.
 
 Counterpart of ``tpuenc/entropy/device_stuff.py``.  The packer leaves one
-raw bit concatenation of every scan's restart segments; the host finish
-(``device_encode._finish_scans_v2``) copies it back and runs the native
-realigner.  This module does the same work on the stream's own device, in
-plain PyTorch (``tpuenc``'s version is XLA, with no Pallas kernel), as two
+raw bit concatenation of every scan's restart segments (of every image's,
+on the single-program batch).  Every whole-image route and the
+single-program batch finish it here, on the stream's own device, in plain
+PyTorch (``tpuenc``'s version is XLA, with no Pallas kernel); the host
+finish (``device_encode._finish_scans_v2``, which copies the stream back
+and runs the native realigner) is the tests' reference.  The work is two
 passes over windows of the realigned bytes:
 
 1. **Realign** (:func:`realign`): realigned byte j lies in segment k (a

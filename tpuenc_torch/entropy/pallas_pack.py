@@ -2,7 +2,7 @@
 
 Counterpart of ``tpuenc/entropy/pallas_pack.py``.  The four stages turn a
 coefficient-major (64, B) int16 block stream into one raw bit
-concatenation of the blocks' Huffman codes (no byte alignment: the host
+concatenation of the blocks' Huffman codes (no byte alignment: the finish
 realigns, pads and stuffs each restart segment):
 
 * P1, :func:`pack_blocks` (K2): one MSB-aligned bit string per block, for

@@ -51,10 +51,11 @@ The spans, where they open (each inside the function it measures):
     ``blocks``.
 ``sync.<what>``
     a blocking read of a device result: ``meta``, ``hist``, ``counts``,
-    ``bytes``, ``stream``, ``words``, ``rows``.
+    ``bytes``, ``words``, ``rows``.
 ``finish.device``, ``finish.host``, ``finish.stream``
     the finish without its reads: the device finish's launches and the
-    split into scans; the host realigner; the streaming stuffer.
+    split into scans; the host realigner (the tests' reference finish, on
+    no route); the streaming stuffer.
 ``assemble``
     the file's assembly and the joins of its bytes.
 
