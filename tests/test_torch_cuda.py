@@ -708,6 +708,40 @@ def test_cuda_matches_cpu(dev, w, h, ct, ch, quality, sf, restart, scans, opt):
     assert out[str(dev)] == out["cpu"]
 
 
+def test_config2_frame_on_cuda_matches_cpu_and_reference(dev):
+    """BASELINE config 2 whole: a 3840x2160 RGB frame at q80 4:2:0 with a
+    restart interval of 64 MCUs (32,400 MCUs, 507 segments, the last of
+    16) on the card equals the CPU path's file and the plain reference's
+    (``encbench/reference/jpeg.py``, run on the card), with RST0-RST7 in
+    turn at all 506 segment boundaries."""
+    import re
+    import sys
+
+    from tpuenc_torch import ColorType, Encoder, SamplingFactor
+
+    sys.path.insert(0, os.path.join(os.path.dirname(HERE), "encbench"))
+    from reference import jpeg
+
+    w, h = 3840, 2160
+    rng = np.random.default_rng(2)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = ((xx * 7 + yy * 3) % 256)[..., None]
+    px = np.clip(base + rng.integers(-40, 40, (h, w, 3)), 0, 255).astype(np.uint8)
+    out = {}
+    for d in (dev, "cpu"):
+        e = Encoder(80, device=d)
+        e.set_sampling_factor(SamplingFactor.from_factors(2, 2))
+        e.set_restart_interval(64)
+        out[str(d)] = e.encode(px, w, h, ColorType.RGB)
+        assert e.last_encode_path == "device-v2"
+    assert out[str(dev)] == out["cpu"]
+    want = jpeg.encode(px, color_type="rgb", quality=80, sampling=(2, 2),
+                       restart_interval=64, device=dev)
+    assert out["cpu"] == want
+    rst = [m[1] - 0xD0 for m in re.findall(rb"\xff[\xd0-\xd7]", want)]
+    assert rst == [i % 8 for i in range(506)]
+
+
 def _batch_encoder(device, quality, kw):
     from tpuenc_torch import Encoder
 

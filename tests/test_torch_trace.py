@@ -209,6 +209,58 @@ def test_a_forced_climb_counts_its_retries(request, route):
     assert enc.last_budget == packs[-1].ints["rung"]
 
 
+def _segments_in(out: bytes) -> int:
+    """The file's restart segments: one a scan, and one more for each RST
+    marker (inside a scan's data a 0xFF byte is stuffed or a marker)."""
+    return out.count(b"\xff\xda") + len(re.findall(rb"\xff[\xd0-\xd7]", out))
+
+
+def _420(interval, **settings):
+    enc = _encoder(**settings)
+    enc.set_sampling_factor(tt.SamplingFactor.from_factors(2, 2))
+    enc.set_restart_interval(interval)
+    return enc
+
+
+# 40x24 at 4:2:0 is 3 x 2 = 6 MCUs: the interval -> its segments
+RESTARTS = [(0, 1), (1, 6), (4, 2), (6, 1), (100, 1)]
+
+
+@pytest.mark.parametrize("interval,segments", RESTARTS)
+def test_a_restart_encode_counts_its_segments(interval, segments):
+    enc = _420(interval)
+    tracing.enable()
+    out = _plain(enc)
+    (req,) = tracing.requests()
+    assert enc.last_encode_path == "device-v2"
+    assert req.counters["restart_segments"] == segments == _segments_in(out)
+
+
+def test_a_progressive_encode_counts_one_segment_a_scan():
+    enc = _encoder(progressive=True, optimized_huffman_tables=True)
+    tracing.enable()
+    out = _plain(enc)
+    (req,) = tracing.requests()
+    scans = out.count(b"\xff\xda")
+    assert scans > 3 and req.counters["restart_segments"] == scans
+
+
+@pytest.mark.parametrize("settings", [
+    {}, {"progressive": True, "optimized_huffman_tables": True}],
+    ids=["interleaved", "multipass"])
+@pytest.mark.parametrize("interval,segments", RESTARTS)
+def test_a_chunked_encode_counts_its_segments(chunked, settings, interval,
+                                              segments):
+    enc = _420(interval, **settings)
+    tracing.enable()
+    out = _plain(enc)
+    (req,) = tracing.requests()
+    assert enc.last_encode_path.startswith("device-chunked")
+    assert req.counters["restart_segments"] == _segments_in(out)
+    if not settings:
+        assert req.counters["restart_segments"] == segments
+
+
 def test_annotations_match_the_spans(tmp_path):
     enc = _encoder()
     _plain(enc)

@@ -480,9 +480,9 @@ class Encoder:
         * ``"device-batch"``: interleaved, default tables, at most 3M
           blocks, a restart interval (if any) that divides each image's
           MCUs: ONE program over the whole batch.  It packs with K1 and
-          K2 even when ``fused_p1`` is set, and finishes on the host, as
-          in ``tpuenc``, where the fused kernel and the device finish
-          reach only the per-image program.
+          K2 even when ``fused_p1`` is set, as in ``tpuenc``, where the
+          fused kernel reaches only the per-image program, and finishes
+          all of its images in one device finish.
         * ``"device-batch-per-image"``: any other batch (another mode,
           optimized tables, a larger batch, a restart interval that does
           not divide the MCUs), each image as :meth:`encode` runs it,

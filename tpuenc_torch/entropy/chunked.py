@@ -217,6 +217,7 @@ class StreamingStuffer:
                 )
             if self.seg_idx != self.n_seg:
                 raise ValueError("segment accounting mismatch")
+            tracing.count("restart_segments", self.n_seg)
             return b""
 
     def _compact(self) -> None:

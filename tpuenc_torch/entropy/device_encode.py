@@ -369,6 +369,7 @@ def _finish_scans_device(buf_words, seg_bits, host_bits, seg_structure,
     one read of the (S,) final segment byte counts, one copy of the
     ``total`` finished bytes (into ``pinned``, a :class:`PinnedBuffer`,
     where given), and the split into scans on the host."""
+    tracing.count("restart_segments", sum(seg_structure))
     out, seg_out, _ = stuff_on_device(buf_words, seg_bits, seg_structure,
                                       host_bits)
     with tracing.span("sync.counts"):

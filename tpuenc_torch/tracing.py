@@ -63,7 +63,10 @@ The counters: ``syncs``, one for every host-blocking device operation,
 which is each ``upload`` (a pageable host-to-device copy waits for the
 stream's queued work) and each ``sync.*`` span, counted as they would
 block on a CUDA device; ``ladder_retries``, one for each pack whose
-overflow sends it to the next rung.
+overflow sends it to the next rung; ``restart_segments``, one for each
+restart segment a finish closes (the device finish's, each scan's
+segments summed, and the streaming stuffer's, once a scan), so a scan
+with no restart interval counts one.
 """
 
 from __future__ import annotations
