@@ -1972,8 +1972,9 @@ def config5_anchors(dev, flagship_bytes, progressive_bytes):
     enc = progressive_encoder(dev)
     config = enc._config()
     _, huffman, params = enc._default_tables(config)
-    got = encode_multipass_chunked(rgb, *shape, config, huffman, params,
-                                   chunk_mcu_rows=16, pack_chunk=1 << 16)
+    got = [b"".join(pieces) for pieces in encode_multipass_chunked(
+        rgb, *shape, config, huffman, params, chunk_mcu_rows=16,
+        pack_chunk=1 << 16)]
     head = progressive_bytes[:progressive_bytes.index(b"\xff\xda")]
     dhts = [segments.dht(k, i, t) for i, pair in enumerate(huffman[:2])
             for k, t in enumerate(pair)]

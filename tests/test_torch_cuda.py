@@ -838,6 +838,36 @@ def test_pinned_staging_reused_across_batches(dev):
     assert enc._pinned is pinned
 
 
+@pytest.mark.parametrize("entry", ["encode", "progressive", "encode_batch"])
+def test_files_outlive_the_next_encode_on_cuda(dev, entry):
+    """The finish hands its scans over as views of the encoder's
+    page-locked buffer, which every encode refills: each file comes back
+    as bytes of its own, which the next encode leaves as it was, and
+    equals the CPU path's file."""
+    from tpuenc_torch import ColorType, Encoder
+
+    calls = [_batch_images(2, 500, 300, seed=s) for s in (5, 6)]
+
+    def run(device):
+        enc = Encoder(90, device=device)
+        enc.set_progressive(entry == "progressive")
+        files, kept = [], []
+        for imgs in calls:
+            got = (enc.encode_batch(imgs, 500, 300, ColorType.RGB)
+                   if entry == "encode_batch"
+                   else [enc.encode(imgs[0], 500, 300, ColorType.RGB)])
+            files += got
+            kept += [bytes(bytearray(f)) for f in got]
+        return enc, files, kept
+
+    enc, files, kept = run(dev)
+    assert enc.last_encode_path == ("device-batch" if entry == "encode_batch"
+                                    else "device-v2")
+    assert enc._pinned._buf.is_pinned()
+    assert all(type(f) is bytes for f in files)
+    assert files == kept == run("cpu")[1]
+
+
 # ---------------------------------------------------------------------------
 # The bounded-memory paths: chunks of a longer stream.
 # ---------------------------------------------------------------------------

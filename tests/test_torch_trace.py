@@ -178,6 +178,26 @@ def test_one_request_per_call_spans_nested(request, route, settings, call,
     assert req.counters.get("ladder_retries", 0) == len(packs) - kept
 
 
+@pytest.mark.parametrize("route,settings,call,entry,path,stages", ROUTES,
+                         ids=IDS)
+def test_assembled_bytes_are_the_files_bytes(request, route, settings, call,
+                                             entry, path, stages):
+    """Each file is gathered once, by the assembly: a request counts the
+    bytes of the files it returns.  A stream hands its pieces over as it
+    makes them, and gathers none."""
+    _setup(request, route)
+    enc = _encoder(**settings)
+    call(enc)
+    tracing.enable()
+    out = call(enc)
+    (req,) = tracing.requests()
+    files = out if isinstance(out, list) else [out]
+    if "assemble" in stages:
+        assert req.counters["assembled_bytes"] == sum(map(len, files)) > 0
+    else:
+        assert "assembled_bytes" not in req.counters
+
+
 def test_cold_calls_put_their_table_uploads_under_plan():
     tracing.enable()
     _plain(_encoder())

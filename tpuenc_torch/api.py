@@ -39,10 +39,7 @@ from .core.types import (
     init_components,
 )
 from .entropy import device_encode as de
-from .entropy.chunked import (
-    encode_interleaved_chunked,
-    iter_encode_interleaved_chunked,
-)
+from .entropy.chunked import iter_encode_interleaved_chunked
 from .entropy.chunked_multipass import encode_multipass_chunked
 from .entropy.device import scan_histograms
 from .entropy.huffopt import (
@@ -450,15 +447,20 @@ class Encoder:
         q_tables, huffman, params = self._default_tables(config)
         scans = self._scan_payloads(pixels, width, height, color_type, config,
                                     huffman, params)
-        piece = bytes(self._leading_segments(config, jct)) + self._frame_header(
+        head = [self._leading_segments(config, jct), self._frame_header(
             width, height, components, q_tables, huffman, config,
-            len(components))
+            len(components))]
         layout = scan_layout(width, height, color_type, config)
         plan = de.build_scan_plan(layout, components, config)
+        # Every piece is made before the first goes out: a payload may view
+        # the encoder's reused buffer, which a call between pieces refills.
+        pieces = []
         for (stream_idx, _, spectral), payload in zip(plan, scans):
-            yield piece + segments.sos([components[stream_idx]], spectral) \
-                + payload
-            piece = b""
+            pieces.append(b"".join(
+                [*head, segments.sos([components[stream_idx]], spectral),
+                 *payload]))
+            head = []
+        yield from pieces
         yield segments.marker(markers.EOI)
 
     def encode_batch(
@@ -524,15 +526,11 @@ class Encoder:
 
         jct = color_type.jpeg_color_type
         components = init_components(jct, config.sampling_factor)
-        prefix = bytes(self._leading_segments(config, jct))
-        files = []
-        for scans in batch_scans:
-            body = self._assemble_scans(scans, width, height, color_type,
-                                        config, components, q_tables, huffman)
-            with tracing.span("assemble"):
-                jpeg = prefix + body + segments.marker(markers.EOI)
-            files.append(self._finish(jpeg))
-        return files
+        leading = self._leading_segments(config, jct)
+        return [self._finish(self._assemble_scans(
+            leading, [[scan] for scan in scans], width, height, color_type,
+            config, components, q_tables, huffman))
+            for scans in batch_scans]
 
     def _finish(self, payload: bytes) -> bytes:
         try:
@@ -609,27 +607,26 @@ class Encoder:
         q_tables, huffman, params = self._default_tables(config)
         scans = self._scan_payloads(pixels, width, height, color_type, config,
                                     huffman, params)
-        body = self._assemble_scans(scans, width, height, color_type, config,
+        return self._assemble_scans(self._leading_segments(config, jct),
+                                    scans, width, height, color_type, config,
                                     components, q_tables, huffman)
-        with tracing.span("assemble"):
-            out = self._leading_segments(config, jct)
-            out += body
-            out += segments.marker(markers.EOI)
-            return bytes(out)
 
     def _scan_payloads(self, pixels, width, height, color_type, config,
-                       huffman, params) -> List[bytes]:
+                       huffman, params) -> List[list]:
         """Every scan's entropy payload in plan order, on the route that
         :meth:`_route` names, which goes to ``last_encode_path`` with the
-        budget rung to ``last_budget``.  ``huffman`` is replaced in place
-        by the optimized tables when the config asks for them."""
+        budget rung to ``last_budget``: each the list of bytes-like parts
+        that joined make it, as the route's finish left them (one view of
+        the device finish's output, valid until the encoder's next encode,
+        or the streaming stuffer's pieces).  ``huffman`` is replaced in
+        place by the optimized tables when the config asks for them."""
         route = self._route(config, width, height, color_type)
         if route.startswith("device-chunked"):
             ladder = list(de.BUDGET_LADDER)
             if route == "device-chunked":
-                scans = [encode_interleaved_chunked(
+                scans = [list(iter_encode_interleaved_chunked(
                     pixels, width, height, color_type, config, params,
-                    ladder=ladder)]
+                    ladder=ladder))]
             else:
                 scans = encode_multipass_chunked(
                     pixels, width, height, color_type, config, huffman, params,
@@ -670,30 +667,35 @@ class Encoder:
                 fused_p1=route == "device-v2-fused", pinned=pinned,
             )
         self.last_encode_path, self.last_budget = route, budget
-        return scans
+        return [[scan] for scan in scans]
 
     def _assemble_scans(
-        self, scan_payloads, width, height, color_type, config, components,
-        q_tables, huffman,
+        self, leading, scan_payloads, width, height, color_type, config,
+        components, q_tables, huffman,
     ) -> bytes:
-        """Frame header + per-scan SOS + entropy payloads, following the
-        scan plan shared with the device path."""
+        """The whole file, gathered in one copy: ``leading`` (SOI and the
+        APP segments), the frame header, then per scan of the plan shared
+        with the device path its SOS and the parts of its payload
+        (``scan_payloads``: each scan's list of bytes-like parts), then
+        EOI."""
         with tracing.span("assemble"):
             layout = scan_layout(width, height, color_type, config)
             plan = de.build_scan_plan(layout, components, config)
-            out = bytearray()
-            out += self._frame_header(
+            parts = [leading, self._frame_header(
                 width, height, components, q_tables, huffman, config,
                 len(components),
-            )
+            )]
             interleaved = layout["interleaved"]
             for (stream_idx, _, spectral), payload in zip(plan,
                                                            scan_payloads):
                 sos_comps = (list(components) if interleaved
                              else [components[stream_idx]])
-                out += segments.sos(sos_comps, spectral)
-                out += payload
-            return bytes(out)
+                parts.append(segments.sos(sos_comps, spectral))
+                parts += payload
+            parts.append(segments.marker(markers.EOI))
+            out = b"".join(parts)
+            tracing.count("assembled_bytes", len(out))
+            return out
 
     def _frame_header(
         self,

@@ -52,11 +52,12 @@ def encode_multipass_chunked(pixels, width: int, height: int,
                              huffman, params: EncodeParams,
                              chunk_mcu_rows: int = 64,
                              pack_chunk: int = PACK_CHUNK_BLOCKS,
-                             ladder=None) -> List[bytes]:
+                             ladder=None) -> List[List[bytes]]:
     """Encode a sequential or progressive image of any size, default or
     optimized tables, on the params' device with O(chunk) transient
     memory.  Returns the per-scan entropy payloads (stuffed, RST markers
-    inline) in plan order.
+    inline) in plan order, each the list of the stuffer's pieces that
+    joined make it.
 
     ``pixels``: the whole array or a pull source (``chunked.read_rows``);
     ``huffman``: the table list, replaced in place by the optimized
@@ -143,7 +144,6 @@ def encode_multipass_chunked(pixels, width: int, height: int,
                 yield blocks, dcdiff, min(cb, B - b0)
 
         stuffer = StreamingStuffer(spec.seg_blocks or B, B)
-        pieces = list(pack_chunks(chunks(), spec, params, stuffer, ladder))
-        with tracing.span("assemble"):
-            payloads.append(b"".join(pieces))
+        payloads.append(list(pack_chunks(chunks(), spec, params, stuffer,
+                                         ladder)))
     return payloads

@@ -360,7 +360,7 @@ def _finish_scans_v2(buf_words, seg_bits, seg_structure) -> List[bytes]:
 
 
 def _finish_scans_device(buf_words, seg_bits, host_bits, seg_structure,
-                         pinned=None) -> List[bytes]:
+                         pinned=None) -> List[memoryview]:
     """Device finishing (``tpuenc``'s ``_finish_scans_v2_device``): both
     passes of :func:`entropy.device_stuff.device_stuff` on the stream's
     device over ``seg_bits``, the (S,) unpadded segment bit counts on that
@@ -368,7 +368,10 @@ def _finish_scans_device(buf_words, seg_bits, host_bits, seg_structure,
     already read; ``seg_structure``: each scan's number of segments.  Then
     one read of the (S,) final segment byte counts, one copy of the
     ``total`` finished bytes (into ``pinned``, a :class:`PinnedBuffer`,
-    where given), and the split into scans on the host."""
+    where given), and the split into scans on the host: each scan a
+    read-only ``memoryview`` of that copy (:func:`split_scans`).  A view
+    into ``pinned`` holds until the next finish into the same buffer
+    overwrites it, so the caller copies what it keeps before then."""
     tracing.count("restart_segments", sum(seg_structure))
     out, seg_out, _ = stuff_on_device(buf_words, seg_bits, seg_structure,
                                       host_bits)
@@ -385,13 +388,15 @@ def _finish_scans_device(buf_words, seg_bits, host_bits, seg_structure,
     return split_scans(data, seg_out_np, seg_structure)
 
 
-def split_scans(data, seg_out_bytes, seg_structure) -> List[bytes]:
+def split_scans(data, seg_out_bytes, seg_structure) -> List[memoryview]:
     """Each scan's bytes of the device finish's output ``data`` (uint8),
-    from the final segment byte counts and the per-scan segment counts."""
+    from the final segment byte counts and the per-scan segment counts:
+    read-only views of ``data``, no copy."""
     with tracing.span("finish.device"):
         first = np.cumsum([0, *seg_structure[:-1]])
         ends = np.cumsum(np.add.reduceat(seg_out_bytes, first))
-        return [data[a:b].tobytes() for a, b in zip([0, *ends[:-1]], ends)]
+        view = memoryview(data).toreadonly()
+        return [view[a:b] for a, b in zip([0, *ends[:-1]], ends)]
 
 
 def seg_structure(layout, scan_plan):
@@ -445,9 +450,10 @@ def device_encode_scans(pixels, width: int, height: int,
     ``ValueError`` for any other plan, and with ``comp_streams``.
     The scans are finished on the device (:func:`_finish_scans_device`,
     the finished bytes copied into ``pinned``, a :class:`PinnedBuffer`,
-    where given).  Returns ``(scans, budget)``: the per-scan entropy byte
-    strings (stuffed, RST markers in place) in plan order, and the budget
-    rung that packed them."""
+    where given).  Returns ``(scans, budget)``: the per-scan entropy bytes
+    (stuffed, RST markers in place) in plan order, as views of the finish's
+    output (:func:`_finish_scans_device`), and the budget rung that packed
+    them."""
     from ..kernels.pipeline import fn_cm, fn_cm_samples
 
     layout, scan_plan, segs = _plan(width, height, color_type, config)
@@ -524,7 +530,8 @@ class PinnedBuffer:
     finished bytes into, grown to the power of two that holds the largest
     copy asked of it and reused after that: ``cudaHostAlloc`` of tens of
     MB costs milliseconds, and a copy into pageable memory runs several
-    times slower than one into page-locked memory."""
+    times slower than one into page-locked memory.  Each copy into it
+    overwrites the last: a view of its bytes holds until the next one."""
 
     def __init__(self):
         self._buf = None
@@ -558,7 +565,8 @@ def device_encode_batch_single(images, width: int, height: int,
     (:func:`_finish_scans_device`), each image a "scan" of its segments,
     so no RST marker falls between images and each image's markers count
     from 0.  It never runs K8.  Returns ``(per-image [scan bytes],
-    budget)``."""
+    budget)``, each image's scan a view of the finish's output
+    (:func:`_finish_scans_device`)."""
     from ..kernels.pipeline import fn_cm
 
     n = len(images)

@@ -53,7 +53,6 @@ from ..entropy import device_encode as de
 from ..entropy import native
 from ..entropy.chunked import BitAccumulator
 from ..entropy.huffopt import tables_from_histograms
-from ..jfif import markers, segments
 from ..kernels.pipeline import scan_layout
 from .mesh import comm_device, stripe_counts
 from .stripes import (
@@ -290,11 +289,10 @@ class ShardedEncoder(Encoder):
         jct = color_type.jpeg_color_type
         components = init_components(jct, config.sampling_factor)
         q_tables, _, _ = self._default_tables(config)
-        return bytes(self._leading_segments(config, jct)
-                     + self._assemble_scans(scans, width, height, color_type,
-                                            config, components, q_tables,
-                                            huffman)
-                     + segments.marker(markers.EOI))
+        return self._assemble_scans(self._leading_segments(config, jct),
+                                    [[scan] for scan in scans], width, height,
+                                    color_type, config, components, q_tables,
+                                    huffman)
 
     def _huffman(self, config, hist):
         """One image's Huffman tables: the K.2 tables of its reduced

@@ -57,7 +57,8 @@ The spans, where they open (each inside the function it measures):
     split into scans; the host realigner (the tests' reference finish, on
     no route); the streaming stuffer.
 ``assemble``
-    the file's assembly and the joins of its bytes.
+    the file's assembly: its segments and scan payloads gathered in one
+    copy.
 
 The counters: ``syncs``, one for every host-blocking device operation,
 which is each ``upload`` (a pageable host-to-device copy waits for the
@@ -66,7 +67,9 @@ block on a CUDA device; ``ladder_retries``, one for each pack whose
 overflow sends it to the next rung; ``restart_segments``, one for each
 restart segment a finish closes (the device finish's, each scan's
 segments summed, and the streaming stuffer's, once a scan), so a scan
-with no restart interval counts one.
+with no restart interval counts one; ``assembled_bytes``, the bytes of
+each file that the assembly gathers (a stream's pieces are handed over as
+they are made, and count none).
 """
 
 from __future__ import annotations
