@@ -357,6 +357,7 @@ def flagship_inputs(dev):
     from tpuenc_torch.entropy import device_encode as de
     from tpuenc_torch.entropy import pallas_pack as pk
     from tpuenc_torch.kernels import pipeline
+    from tpuenc_torch.plan import make_plan
 
     config = EncoderConfig(quality=90)
     q_tables = [quantization_table("default", 90, True),
@@ -364,8 +365,8 @@ def flagship_inputs(dev):
     huffman = [list(p) for p in default_tables()]
     params = params_from_numpy(q_tables, *de.tables_to_arrays(huffman), dev)
     px = torch.from_numpy(make_rgb(FLAGSHIP_W, FLAGSHIP_H)).to(dev)
-    layout = pipeline.scan_layout(FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB, config)
-    ((_, spec, _),) = de.build_scan_plan(layout, layout["components"], config)
+    plan = make_plan(FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB, config)
+    layout, ((_, spec, _),) = plan.layout, plan.scans
     (stream,) = pipeline.fn_cm(px, FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB,
                                config, params.reciprocals, params.corrections)
     B = stream.shape[1]
@@ -503,6 +504,7 @@ def uhd_inputs(dev):
     from tpuenc_torch.core.types import ColorType, EncoderConfig, SamplingFactor
     from tpuenc_torch.entropy import device_encode as de
     from tpuenc_torch.kernels import pipeline
+    from tpuenc_torch.plan import make_plan
 
     config = EncoderConfig(quality=80, sampling_factor=SamplingFactor.F_2_2,
                            restart_interval=64)
@@ -511,16 +513,16 @@ def uhd_inputs(dev):
     huffman = [list(p) for p in default_tables()]
     params = params_from_numpy(q_tables, *de.tables_to_arrays(huffman), dev)
     px = torch.from_numpy(make_rgb(UHD_W, UHD_H)).to(dev)
-    layout = pipeline.scan_layout(UHD_W, UHD_H, ColorType.RGB, config)
-    ((_, spec, _),) = de.build_scan_plan(layout, layout["components"], config)
+    plan = make_plan(UHD_W, UHD_H, ColorType.RGB, config)
+    ((_, spec, _),) = plan.scans
     samples = pipeline.fn_cm_samples(px, UHD_W, UHD_H, ColorType.RGB, config)
     (stream,) = pipeline.fn_cm(px, UHD_W, UHD_H, ColorType.RGB, config,
                                params.reciprocals, params.corrections)
     Bp = -(-samples.shape[1] // 512) * 512
-    return params, spec, de.qtab_pattern(layout), samples, stream, Bp
+    return params, spec, de.qtab_pattern(plan.layout), samples, stream, Bp
 
 
-# The no-P3 shape of K5 at the whole-image limit (api.py's 3,000,000
+# The no-P3 shape of K5 at the whole-image limit (plan.py's 3,000,000
 # blocks): P2's 128 x n2 rows, n2 = ceil(ceil(Bp / 128) / 256) = 92, of
 # its rung-5 cap, each row 256 blocks of 109-146 bits (the flagship's mean
 # at rung 5 is 137); 2% of the rows empty.
@@ -739,21 +741,22 @@ def stage_times(dev, rgb, budget, fused=False):
     from tpuenc_torch.entropy import device_encode as de
     from tpuenc_torch.entropy import pallas_pack as pk
     from tpuenc_torch.kernels import pipeline
+    from tpuenc_torch.plan import make_plan
 
     config = Encoder(90, device=dev)._config()
     q_tables = [quantization_table("default", 90, True),
                 quantization_table("default", 90, False)]
     huffman = [list(p) for p in default_tables()]
     params = de.params_from_numpy(q_tables, *de.tables_to_arrays(huffman), dev)
-    layout = pipeline.scan_layout(FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB, config)
-    ((_, spec, _),) = de.build_scan_plan(layout, layout["components"], config)
+    plan = make_plan(FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB, config)
+    ((_, spec, _),) = plan.scans
     host = torch.from_numpy(rgb)
     px = host.to(dev)
     shape = (px, FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB, config)
     st = {}
     st["h2d pixels"] = cuda_ms(lambda: host.to(dev))
     if fused:
-        qtabs = de.qtab_pattern(layout)
+        qtabs = de.qtab_pattern(plan.layout)
         st["samples (color, pad, blockify, MCU order)"] = cuda_ms(
             lambda: pipeline.fn_cm_samples(*shape))
         samples = pipeline.fn_cm_samples(*shape)
@@ -1109,12 +1112,12 @@ def progressive_stage_times(dev, rgb, budget):
     from tpuenc_torch.entropy import pallas_pack as pk
     from tpuenc_torch.entropy.device import scan_histograms
     from tpuenc_torch.kernels import pipeline
+    from tpuenc_torch.plan import make_plan
 
     config = progressive_encoder(dev)._config()
-    layout = pipeline.scan_layout(FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB, config)
-    comps = layout["components"]
-    plan = de.build_scan_plan(layout, comps, config)
-    seg_structure = de.seg_structure(layout, plan)
+    whole = make_plan(FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB, config)
+    comps, plan = whole.components, whole.scans
+    seg_structure = whole.seg_structure
     q_tables = [quantization_table("default", 90, True),
                 quantization_table("default", 90, False)]
     recip, corr = de.quant_params(q_tables, dev)
@@ -1141,11 +1144,10 @@ def progressive_stage_times(dev, rgb, budget):
     st["histograms (DC + K7 x3) + D2H of 2x2x257 counts"] = cuda_ms(histograms)
     hists = histograms().numpy()
     huffman = [list(p) for p in default_tables()]
-    hint = optimize_tables(hists, huffman, FLAGSHIP_W, FLAGSHIP_H,
-                           ColorType.RGB, config)
+    hint = optimize_tables(hists, huffman, whole)
     st["host: K.2 build x4 + exact bits (host clock)"] = host_times(
         lambda: optimize_tables(hists, [list(p) for p in default_tables()],
-                                FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB, config))
+                                whole))
     params = de.EncodeParams(recip, corr, *de.huffman_params(huffman, dev))
     st["P1: DC path x3 + K6 x3 + concat"] = cuda_ms(
         lambda: de.pack_scans_p1(streams, plan, params, budget))
@@ -1263,12 +1265,13 @@ def batch_stream(dev, enc, imgs, w, h):
     interleaved spec with segments of the interval or of one image, the
     segments per image and the batch's MCU stream."""
     from tpuenc_torch import ColorType
-    from tpuenc_torch.entropy import device_encode as de
     from tpuenc_torch.kernels import pipeline
+    from tpuenc_torch.plan import make_plan
 
     config = enc._config()
     params = enc._default_tables(config)[2]
-    layout, ((_, spec, _),), _ = de._plan(w, h, ColorType.RGB, config)
+    plan = make_plan(w, h, ColorType.RGB, config)
+    layout, ((_, spec, _),) = plan.layout, plan.scans
     per_image = layout["mcu_count"] * len(layout["mcu_block_comps"])
     spec = spec._replace(seg_blocks=spec.seg_blocks or per_image)
     px = upload_pageable(dev, imgs)
@@ -1829,8 +1832,9 @@ def phase_config5(dev, flagship_bytes, progressive_bytes, keep):
 
     from tpuenc_torch.entropy import chunked_multipass as cm
 
-    from tpuenc_torch import ColorType, api
-    from tpuenc_torch.entropy import device_encode as de
+    from tpuenc_torch import ColorType
+    from tpuenc_torch import plan as planning
+    from tpuenc_torch.plan import make_plan
 
     ct = ColorType.CMYK_AS_YCCK
     w = h = CONFIG5
@@ -1874,13 +1878,13 @@ def phase_config5(dev, flagship_bytes, progressive_bytes, keep):
     enc_c = config5_encoder(dev)
     whole_c, _, peak_whole = peak_encode(
         dev, lambda: enc_c.encode(img_c, w, CONFIG5_C_ROWS, ct))
-    limit = api.DEVICE_BLOCK_LIMIT
-    api.DEVICE_BLOCK_LIMIT = 0
+    limit = planning.DEVICE_BLOCK_LIMIT
+    planning.DEVICE_BLOCK_LIMIT = 0
     try:
         out_c, _, peak_c = peak_encode(
             dev, lambda: enc_c.encode(img_c, w, CONFIG5_C_ROWS, ct))
     finally:
-        api.DEVICE_BLOCK_LIMIT = limit
+        planning.DEVICE_BLOCK_LIMIT = limit
     print(f"  (c) {w}x{CONFIG5_C_ROWS}, block limit 0: {len(out_c)} bytes, "
           f"path {enc_c.last_encode_path}, rung {enc_c.last_budget}, peak "
           f"device memory {peak_c / 2**20:.1f} MiB ({peak_c / peak_a:.3f} of "
@@ -1925,8 +1929,8 @@ def phase_config5(dev, flagship_bytes, progressive_bytes, keep):
     finally:
         cm.tables_from_histograms = tables
     keep["d"] = (len(out_d), hashlib.sha256(out_d).hexdigest())
-    store = 128 * sum(de._plan(w, h, ct, enc_d._config())[0]
-                      ["comp_block_counts"])
+    store = 128 * sum(make_plan(w, h, ct, enc_d._config())
+                      .layout["comp_block_counts"])
     print(f"  (d) {len(out_d)} bytes, path {enc_d.last_encode_path}, rung "
           f"{enc_d.last_budget}, peak device memory {peak_d / 2**20:.1f} MiB "
           f"beside the store's {store / 2**20:.1f} MiB, launches {launches_d}")
@@ -1953,16 +1957,18 @@ def phase_config5(dev, flagship_bytes, progressive_bytes, keep):
 
 def config5_anchors(dev, flagship_bytes, progressive_bytes):
     """Phase 9 (e): the chunked paths against the whole-image path."""
-    from tpuenc_torch import ColorType, Encoder, SamplingFactor, api
+    from tpuenc_torch import ColorType, Encoder, SamplingFactor
+    from tpuenc_torch import plan as planning
     from tpuenc_torch.entropy.chunked import encode_interleaved_chunked
     from tpuenc_torch.entropy.chunked_multipass import encode_multipass_chunked
     from tpuenc_torch.jfif import segments
+    from tpuenc_torch.plan import make_plan
 
     rgb = make_rgb(FLAGSHIP_W, FLAGSHIP_H)
     shape = (FLAGSHIP_W, FLAGSHIP_H, ColorType.RGB)
     enc = Encoder(90, device=dev)
     config = enc._config()
-    got = encode_interleaved_chunked(rgb, *shape, config,
+    got = encode_interleaved_chunked(rgb, make_plan(*shape, config),
                                      enc._default_tables(config)[2],
                                      chunk_mcu_rows=16)
     if [got] != scan_payloads(flagship_bytes):
@@ -1973,7 +1979,7 @@ def config5_anchors(dev, flagship_bytes, progressive_bytes):
     config = enc._config()
     _, huffman, params = enc._default_tables(config)
     got = [b"".join(pieces) for pieces in encode_multipass_chunked(
-        rgb, *shape, config, huffman, params, chunk_mcu_rows=16,
+        rgb, make_plan(*shape, config), huffman, params, chunk_mcu_rows=16,
         pack_chunk=1 << 16)]
     head = progressive_bytes[:progressive_bytes.index(b"\xff\xda")]
     dhts = [segments.dht(k, i, t) for i, pair in enumerate(huffman[:2])
@@ -1990,21 +1996,21 @@ def config5_anchors(dev, flagship_bytes, progressive_bytes):
     enc.set_restart_interval(64)
     config = enc._config()
     whole = enc.encode(uhd, UHD_W, UHD_H, ColorType.RGB)
-    got = encode_interleaved_chunked(uhd, UHD_W, UHD_H, ColorType.RGB, config,
-                                     enc._default_tables(config)[2],
-                                     chunk_mcu_rows=7)
+    got = encode_interleaved_chunked(
+        uhd, make_plan(UHD_W, UHD_H, ColorType.RGB, config),
+        enc._default_tables(config)[2], chunk_mcu_rows=7)
     if [got] != scan_payloads(whole):
         raise AssertionError("(e) chunked 4K 4:2:0 restart 64 differs")
     print("  (e) 4K 4:2:0 restart 64, 7 MCU rows a chunk (segments across "
           "chunk edges): == its whole-image scan payload")
 
-    limit = api.DEVICE_BLOCK_LIMIT
-    api.DEVICE_BLOCK_LIMIT = 0
+    limit = planning.DEVICE_BLOCK_LIMIT
+    planning.DEVICE_BLOCK_LIMIT = 0
     try:
         enc = Encoder(90, device=dev)
         out = enc.encode(rgb, *shape)
     finally:
-        api.DEVICE_BLOCK_LIMIT = limit
+        planning.DEVICE_BLOCK_LIMIT = limit
     if out != flagship_bytes or enc.last_encode_path != "device-chunked":
         raise AssertionError("(e) encode over a lowered limit differs")
     print(f"  (e) encode with DEVICE_BLOCK_LIMIT 0: path "
@@ -2015,10 +2021,10 @@ def config5_kernel_checks(dev, img, rung, rung_d):
     """Phase 9 (g): the kernels at the chunked paths' shapes against their
     plain versions, as phase 3 holds them."""
     from tpuenc_torch import ColorType
-    from tpuenc_torch.entropy import device_encode as de
     from tpuenc_torch.entropy import pallas_hist as ph
     from tpuenc_torch.entropy import pallas_pack as pk
     from tpuenc_torch.kernels import pipeline
+    from tpuenc_torch.plan import make_plan
 
     ct = ColorType.CMYK_AS_YCCK
     w = CONFIG5
@@ -2043,7 +2049,7 @@ def config5_kernel_checks(dev, img, rung, rung_d):
                              params.corrections)
     (mcu1,) = pipeline.fn_cm(px1, w, rows, ct, config, params.reciprocals,
                              params.corrections)
-    _, ((_, spec, _),), _ = de._plan(w, w, ct, config)
+    ((_, spec, _),) = make_plan(w, w, ct, config).scans
     pat = len(spec.dc_tab_pattern)
     spec = spec._replace(seg_blocks=100 * pat)
     tail = mcu0[0, -pat:]
@@ -2064,7 +2070,7 @@ def config5_kernel_checks(dev, img, rung, rung_d):
     px = torch.from_numpy(img[:CONFIG5_C_ROWS]).to(dev)
     store_y = pipeline.fn_cm(px, w, CONFIG5_C_ROWS, ct, config_d,
                              params.reciprocals, params.corrections)[0]
-    spec_y = de._plan(w, w, ct, config_d)[1][0][1]
+    spec_y = make_plan(w, w, ct, config_d).scans[0][1]
     B = store_y.shape[1]
     dcdiff = pk.dc_diffs_from_dc(store_y[0], spec_y,
                                  prev_tail=store_y[0, -1:], global_offset=B)
@@ -2747,11 +2753,11 @@ def shard_kernel_checks(dev, img, rung, rung_d, n_stripes=SHARD_RANKS,
     ``rung_d`` is None, K7 on stripe 1's Y stream, and K2-K5 on it as
     (d)'s Y scan packs it, at (d)'s rung (with the default tables)."""
     from tpuenc_torch import ColorType
-    from tpuenc_torch.entropy import device_encode as de
     from tpuenc_torch.entropy import pallas_hist as ph
     from tpuenc_torch.entropy import pallas_pack as pk
     from tpuenc_torch.kernels import pipeline
     from tpuenc_torch.shard import stripes
+    from tpuenc_torch.plan import make_plan
 
     ct = ColorType.CMYK_AS_YCCK
     results = {}
@@ -2774,7 +2780,7 @@ def shard_kernel_checks(dev, img, rung, rung_d, n_stripes=SHARD_RANKS,
                              params.reciprocals, params.corrections)
     (mcu1,) = pipeline.fn_cm(px1, CONFIG5, rows, ct, config,
                              params.reciprocals, params.corrections)
-    _, ((_, spec, _),), _ = de._plan(CONFIG5, CONFIG5, ct, config)
+    ((_, spec, _),) = make_plan(CONFIG5, CONFIG5, ct, config).scans
     pat = len(spec.dc_tab_pattern)
     dcdiff = pk.dc_diffs_from_dc(mcu1[0], spec, prev_tail=mcu0[0, -pat:],
                                  global_offset=mcu0.shape[1])
@@ -2795,7 +2801,7 @@ def shard_kernel_checks(dev, img, rung, rung_d, n_stripes=SHARD_RANKS,
                  lambda: ph.hist_count(luma, [(1, 64)]),
                  lambda: ph.hist_count_ref(luma, [(1, 64)]), nbytes(luma),
                  reps=5)
-    spec_y = de._plan(CONFIG5, CONFIG5, ct, config_d)[1][0][1]
+    spec_y = make_plan(CONFIG5, CONFIG5, ct, config_d).scans[0][1]
     prev = pipeline.fn_cm(px0, CONFIG5, rows, ct, config_d, params.reciprocals,
                           params.corrections)[0][0, -1:]
     dcdiff = pk.dc_diffs_from_dc(luma[0], spec_y, prev_tail=prev,

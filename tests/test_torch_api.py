@@ -122,11 +122,11 @@ def test_pack_rows_count_every_scan():
     multipass path, a 2-scan plan of the same image stays whole."""
     enc = tt.Encoder(90, device="cpu")
     enc.set_progressive_scans(64)
-    assert enc._route(enc._config(), 4096, 4096, tt.ColorType.RGB) == \
-        "device-chunked-multipass"
+    plan = enc._plan(4096, 4096, tt.ColorType.RGB)
+    assert plan.pack_rows == 512 * 512 * 3 * 64
+    assert plan.route == "device-chunked-multipass"
     enc.set_progressive_scans(2)
-    assert enc._route(enc._config(), 4096, 4096, tt.ColorType.RGB) == \
-        "device-v2"
+    assert enc._plan(4096, 4096, tt.ColorType.RGB).route == "device-v2"
 
 
 def test_import_leaves_out_jax():
@@ -136,12 +136,12 @@ def test_import_leaves_out_jax():
     and its launcher, loads neither jax nor tpuenc."""
     code = (
         "import sys, numpy as np, tpuenc_torch as t\n"
-        "from tpuenc_torch import api\n"
+        "from tpuenc_torch import plan\n"
         "px = np.zeros((8, 8, 3), np.uint8)\n"
         "for f in (False, True):\n"
         "    t.Encoder(90, device='cpu', fused_p1=f).encode("
         "px, 8, 8, t.ColorType.RGB)\n"
-        "api.DEVICE_BLOCK_LIMIT = 0\n"
+        "plan.DEVICE_BLOCK_LIMIT = 0\n"
         "e = t.Encoder(90, device='cpu')\n"
         "e.encode(px, 8, 8, t.ColorType.RGB)\n"
         "assert e.last_encode_path == 'device-chunked', e.last_encode_path\n"
@@ -184,7 +184,7 @@ def test_unsupported_entry_points_raise():
     want = enc.encode(px, 16, 16, tt.ColorType.RGB)
     assert enc.encode_batch([px], 16, 16, tt.ColorType.RGB) == [want]
     assert b"".join(enc.encode_stream(px, 16, 16, tt.ColorType.RGB)) == want
-    assert enc._route(enc._config(), 16384, 16384, tt.ColorType.RGB) == \
+    assert enc._plan(16384, 16384, tt.ColorType.RGB).route == \
         "device-chunked"
 
 

@@ -21,8 +21,7 @@ jax = pytest.importorskip("jax")
 
 import tpuenc  # noqa: E402
 import tpuenc_torch as tt  # noqa: E402
-from tpuenc_torch import api  # noqa: E402
-from tpuenc_torch.core.types import init_components  # noqa: E402
+from tpuenc_torch import plan as planning  # noqa: E402
 from tpuenc_torch.entropy import device_encode as de  # noqa: E402
 
 W, H = 40, 24
@@ -97,7 +96,7 @@ def test_a_file_is_bytes_that_the_next_encode_leaves_alone(name, reuse,
                                                            monkeypatch):
     settings, call, route = ROUTES[name]
     if route.startswith("device-chunked"):
-        monkeypatch.setattr(api, "DEVICE_BLOCK_LIMIT", 0)
+        monkeypatch.setattr(planning, "DEVICE_BLOCK_LIMIT", 0)
     buffer = ReusedBuffer() if reuse else None
     enc = _port(settings, buffer, monkeypatch)
     a = call(enc, A)
@@ -141,25 +140,22 @@ _made = {}
 
 
 def _made_for(name):
-    """The encoder, its assembly's arguments and each scan's payload
+    """The encoder, its plan, the file's head and each scan's payload
     joined, once a case: the file that ``encode`` gives is the assembly
     of the route's own parts."""
     if name not in _made:
         enc = tt.Encoder(90, device="cpu")
         for key, value in PARTS[name].items():
             getattr(enc, f"set_{key}")(value)
-        config = enc._config()
         ct = tt.ColorType.RGB
-        q_tables, huffman, params = enc._default_tables(config)
-        scans = enc._scan_payloads(A, W, H, ct, config, huffman, params)
+        plan = enc._plan(W, H, ct)
+        q_tables, huffman, params = enc._default_tables(plan.config)
+        scans = enc._scan_payloads(A, plan, huffman, params)
         joined = [b"".join(parts) for parts in scans]
-        args = (W, H, ct, config,
-                init_components(ct.jpeg_color_type, config.sampling_factor),
-                q_tables, huffman)
-        leading = bytes(enc._leading_segments(config, ct.jpeg_color_type))
-        want = enc._assemble_scans(leading, [[s] for s in joined], *args)
+        head = enc._head(plan, q_tables, huffman)
+        want = enc._assemble_scans(plan, head, [[s] for s in joined])
         assert want == enc.encode(A, W, H, ct) == _tpuenc(PARTS[name], A)
-        _made[name] = (enc, leading, joined, args, want)
+        _made[name] = (enc, plan, head, joined, want)
     return _made[name]
 
 
@@ -181,7 +177,7 @@ KINDS = ["bytes", "bytearray", "memoryview", "numpy"]
 @given(data=st.data())
 @pytest.mark.parametrize("name", sorted(PARTS))
 def test_any_split_of_the_payloads_gives_the_same_file(name, data):
-    enc, leading, joined, args, want = _made_for(name)
+    enc, plan, head, joined, want = _made_for(name)
     if name == "progressive12":
         assert len(joined) == 12
     if name == "restart":
@@ -193,6 +189,6 @@ def test_any_split_of_the_payloads_gives_the_same_file(name, data):
         bounds = [0, *cuts, len(scan)]
         payloads.append([_as(data.draw(st.sampled_from(KINDS)), scan[a:b])
                          for a, b in zip(bounds, bounds[1:])])
-    head = _as(data.draw(st.sampled_from(["bytes", "bytearray"])), leading)
-    got = enc._assemble_scans(head, payloads, *args)
+    head = _as(data.draw(st.sampled_from(["bytes", "bytearray"])), head)
+    got = enc._assemble_scans(plan, head, payloads)
     assert type(got) is bytes and got == want

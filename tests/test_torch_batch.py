@@ -20,6 +20,11 @@ from tpuenc_torch.core.types import EncoderConfig, SamplingFactor  # noqa: E402
 from tpuenc_torch.entropy import device_encode as de  # noqa: E402
 from tpuenc_torch.kernels import pipeline as tpipe  # noqa: E402
 from tpuenc_torch.kernels.color_convert import to_planes  # noqa: E402
+from tpuenc_torch.plan import (  # noqa: E402
+    PER_IMAGE,
+    SINGLE_PROGRAM,
+    make_plan,
+)
 
 
 def _setup(enc, restart=0, scans=None, opt=False):
@@ -259,16 +264,17 @@ def test_over_limit_batch_raises_naming_m9(monkeypatch):
     each through encode's chunked path, as tpuenc's batch does (12.6M pack
     rows for 2048x2048 RGB in 64 scans; a small batch with the block limit
     forced down)."""
-    from tpuenc_torch import api
+    from tpuenc_torch import plan as planning
 
     enc = tt.Encoder(90, device="cpu")
     enc.set_progressive_scans(64)
-    assert api._over_limits(2048, 2048, tt.ColorType.RGB, enc._config())
-    assert enc._route(enc._config(), 2048, 2048, tt.ColorType.RGB) == \
-        "device-chunked-multipass"
+    plan = enc._plan(2048, 2048, tt.ColorType.RGB, n=2)
+    assert plan.pack_rows > planning.DEVICE_PACK_ROWS_LIMIT
+    assert (plan.route, plan.image_route) == (
+        "device-batch-per-image", "device-chunked-multipass")
 
     imgs = _images(2, 40, 24, 3, 5)
-    monkeypatch.setattr(api, "DEVICE_BLOCK_LIMIT", 10)
+    monkeypatch.setattr(planning, "DEVICE_BLOCK_LIMIT", 10)
     for scans in (None, 3):
         enc = _setup(tt.Encoder(90, device="cpu"), scans=scans)
         files = enc.encode_batch(imgs, 40, 24, tt.ColorType.RGB)
@@ -288,25 +294,27 @@ def _config(sf="F_1_1", restart=None, progressive=None, opt=False):
 
 @pytest.mark.parametrize("n,w,h,config,route", [
     # The block limit, n * (w//8 + 1) * (h//8 + 1) <= 3,000,000.
-    (8, 2000, 1800, _config(), de.SINGLE_PROGRAM),            # 453,808
-    (52, 2000, 1800, _config(), de.SINGLE_PROGRAM),           # 2,949,752
-    (53, 2000, 1800, _config(), de.PER_IMAGE),                # 3,006,478
-    (1000, 799, 239, _config(), de.SINGLE_PROGRAM),           # 3,000,000
-    (1001, 799, 239, _config(), de.PER_IMAGE),                # 3,003,000
+    (8, 2000, 1800, _config(), SINGLE_PROGRAM),            # 453,808
+    (52, 2000, 1800, _config(), SINGLE_PROGRAM),           # 2,949,752
+    (53, 2000, 1800, _config(), PER_IMAGE),                # 3,006,478
+    (1000, 799, 239, _config(), SINGLE_PROGRAM),           # 3,000,000
+    (1001, 799, 239, _config(), PER_IMAGE),                # 3,003,000
     # The restart interval must divide each image's MCUs (56,250 here).
-    (4, 2000, 1800, _config(restart=50), de.SINGLE_PROGRAM),
-    (4, 2000, 1800, _config(restart=64), de.PER_IMAGE),
+    (4, 2000, 1800, _config(restart=50), SINGLE_PROGRAM),
+    (4, 2000, 1800, _config(restart=64), PER_IMAGE),
     # 4:2:0: 125 x 113 = 14,125 MCUs.
-    (4, 2000, 1800, _config(sf="F_2_2", restart=25), de.SINGLE_PROGRAM),
-    (4, 2000, 1800, _config(sf="F_2_2", restart=30), de.PER_IMAGE),
+    (4, 2000, 1800, _config(sf="F_2_2", restart=25), SINGLE_PROGRAM),
+    (4, 2000, 1800, _config(sf="F_2_2", restart=30), PER_IMAGE),
     # The mode and the tables.
-    (4, 64, 64, _config(progressive=4), de.PER_IMAGE),
-    (4, 64, 64, _config(opt=True), de.PER_IMAGE),
-    (4, 64, 64, _config(progressive=4, opt=True), de.PER_IMAGE),
+    (4, 64, 64, _config(progressive=4), PER_IMAGE),
+    (4, 64, 64, _config(opt=True), PER_IMAGE),
+    (4, 64, 64, _config(progressive=4, opt=True), PER_IMAGE),
 ])
 def test_batch_route(n, w, h, config, route):
-    """The route function at its boundaries, computed without encoding."""
-    assert de.batch_route(n, w, h, tt.ColorType.RGB, config) == route
+    """The batch's plan at the route's boundaries, computed without
+    encoding; its images' own route is encode()'s."""
+    plan = make_plan(w, h, tt.ColorType.RGB, config, n=n)
+    assert (plan.route, plan.image_route) == (route, "device-v2")
 
 
 @pytest.mark.parametrize("config", [_config(restart=7), _config(progressive=2),
@@ -316,9 +324,23 @@ def test_route_functions_refuse_other_batches(config):
     """The single program raises for a batch it does not serve."""
     imgs = _images(2, 66, 34, 3, seed=0)
     params = tt.Encoder(90, device="cpu")._default_tables(config)[2]
+    plan = make_plan(66, 34, tt.ColorType.RGB, config, n=len(imgs))
+    assert plan.route == PER_IMAGE
     with pytest.raises(ValueError, match="single program"):
-        de.device_encode_batch_single(imgs, 66, 34, tt.ColorType.RGB, config,
-                                      params)
+        de.device_encode_batch_single(imgs, plan, params)
+
+
+def test_single_program_refuses_a_batch_of_another_size():
+    """A single-program plan serves the number of images it was made for:
+    a batch of another size raises before anything runs."""
+    config = EncoderConfig(quality=90)
+    imgs = _images(3, 16, 16, 3, seed=0)
+    params = tt.Encoder(90, device="cpu")._default_tables(config)[2]
+    plan = make_plan(16, 16, tt.ColorType.RGB, config, n=2)
+    assert plan.route == SINGLE_PROGRAM and plan.n == 2
+    with pytest.raises(ValueError, match="single program"):
+        de.device_encode_batch_single(imgs, plan, params)
+    de.device_encode_batch_single(imgs[:2], plan, params)
 
 
 def test_batched_luma_keeps_its_width():

@@ -4,7 +4,7 @@ the CPU (the kernels' plain versions), byte for byte (integer arithmetic:
 tolerance 0).
 
 Chunking is forced with small ``chunk_mcu_rows`` / ``pack_chunk`` or by
-lowering ``tpuenc_torch.api.DEVICE_BLOCK_LIMIT``.  tpuenc's host path
+lowering ``tpuenc_torch.plan.DEVICE_BLOCK_LIMIT``.  tpuenc's host path
 (``TPUENC_DEVICE_ENTROPY=0``), which its own tests hold byte-identical to
 its chunked device paths (tests/test_chunked.py), is the quick reference
 for whole files and scan payloads.
@@ -23,7 +23,7 @@ import tpuenc  # noqa: E402
 import tpuenc_torch as tt  # noqa: E402
 from tpuenc.entropy import chunked as jchunked  # noqa: E402
 from tpuenc.entropy import pallas_pack as jpack  # noqa: E402
-from tpuenc_torch import api  # noqa: E402
+from tpuenc_torch import plan as planning  # noqa: E402
 from tpuenc_torch.entropy import chunked  # noqa: E402
 from tpuenc_torch.entropy import native as tnative  # noqa: E402
 from tpuenc_torch.entropy import pallas_pack as tpack  # noqa: E402
@@ -257,8 +257,8 @@ def test_interleaved_chunked_matches_tpuenc(name, monkeypatch):
     params = enc._default_tables(enc._config())[2]
     ladder = list(BUDGET_LADDER)
     got = chunked.encode_interleaved_chunked(
-        px, W, H, tt.ColorType[ct], enc._config(), params,
-        chunk_mcu_rows=rows, ladder=ladder)
+        px, enc._plan(W, H, tt.ColorType[ct]), params, chunk_mcu_rows=rows,
+        ladder=ladder)
     assert got == want
     assert ladder[-1] == 224 and ladder[0] >= 4
 
@@ -277,8 +277,7 @@ def test_top_rung_overflow_raises(monkeypatch):
     monkeypatch.setattr(chunked, "_pack", overflowing)
     with pytest.raises(RuntimeError, match="top rung"):
         chunked.encode_interleaved_chunked(
-            _pixels(3, 1, 16, 16), 16, 16, tt.ColorType.RGB, enc._config(),
-            params)
+            _pixels(3, 1, 16, 16), enc._plan(16, 16, tt.ColorType.RGB), params)
 
 
 # ---------------------------------------------------------------------------
@@ -311,7 +310,7 @@ def test_multipass_chunked_matches_tpuenc(name, monkeypatch):
     want = _tpuenc_host(monkeypatch, q, setup, px, ct)
     enc = _port(q, setup)
     _, huffman, params = enc._default_tables(enc._config())
-    got = encode_multipass_chunked(px, W, H, tt.ColorType[ct], enc._config(),
+    got = encode_multipass_chunked(px, enc._plan(W, H, tt.ColorType[ct]),
                                    huffman, params, chunk_mcu_rows=rows,
                                    pack_chunk=pack)
     assert [b"".join(pieces) for pieces in got] == _payloads(want)
@@ -335,7 +334,7 @@ def test_encode_over_the_limit(name, path, monkeypatch):
     q, ct, ch, setup = (INTERLEAVED.get(name) or MULTIPASS[name])[:4]
     px = _pixels(ch, 99)
     want = _tpuenc_host(monkeypatch, q, setup, px, ct)
-    monkeypatch.setattr(api, "DEVICE_BLOCK_LIMIT", 10)
+    monkeypatch.setattr(planning, "DEVICE_BLOCK_LIMIT", 10)
     enc = _port(q, setup)
     assert enc.encode(px, W, H, tt.ColorType[ct]) == want
     assert enc.last_encode_path == path
@@ -350,7 +349,7 @@ def test_encode_over_the_limit(name, path, monkeypatch):
 def test_fused_over_the_limit_takes_the_split_chunked_path(monkeypatch):
     px = _pixels(3, 7)
     want = tt.Encoder(90, device="cpu").encode(px, W, H, tt.ColorType.RGB)
-    monkeypatch.setattr(api, "DEVICE_BLOCK_LIMIT", 10)
+    monkeypatch.setattr(planning, "DEVICE_BLOCK_LIMIT", 10)
     enc = tt.Encoder(90, device="cpu", fused_p1=True)
     assert enc.encode(px, W, H, tt.ColorType.RGB) == want
     assert enc.last_encode_path == "device-chunked"

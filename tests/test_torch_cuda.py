@@ -919,14 +919,15 @@ def _chunked_encoder(device, sf="F_2_2", restart=0, opt=False):
 def test_chunked_encode_on_cuda_matches_cpu(dev, restart, opt, monkeypatch):
     """A chunked encode on the card (the block limit forced down, several
     chunks) equals the CPU path's bytes, and the whole-image path's."""
-    from tpuenc_torch import ColorType, api
+    from tpuenc_torch import ColorType
+    from tpuenc_torch import plan as planning
 
     rng = np.random.default_rng(restart)
     w, h = 1000, 700
     px = rng.integers(0, 256, (h, w, 4), np.uint8)
     want = _chunked_encoder(dev, restart=restart, opt=opt).encode(
         px, w, h, ColorType.CMYK_AS_YCCK)
-    monkeypatch.setattr(api, "DEVICE_BLOCK_LIMIT", 1000)
+    monkeypatch.setattr(planning, "DEVICE_BLOCK_LIMIT", 1000)
     out = {}
     for d in (dev, "cpu"):
         e = _chunked_encoder(d, restart=restart, opt=opt)
@@ -1085,12 +1086,13 @@ def test_device_finish_memory_near_the_block_limit(dev, monkeypatch):
     and adds at most its output (2 bytes per realigned byte and per
     segment) and a fixed set of window temporaries to the card's memory,
     whatever the stream's size."""
-    from tpuenc_torch import ColorType, Encoder, api
+    from tpuenc_torch import ColorType, Encoder
+    from tpuenc_torch import plan as planning
     from tpuenc_torch.entropy import device_encode as de
     from tpuenc_torch.entropy import device_stuff as ds
 
     w = h = 13824
-    assert (w // 8 + 1) * (h // 8 + 1) <= api.DEVICE_BLOCK_LIMIT
+    assert (w // 8 + 1) * (h // 8 + 1) <= planning.DEVICE_BLOCK_LIMIT
     px = np.ascontiguousarray(np.tile(_gradient(2000, 1800), (8, 7, 1))[:h, :w])
     seen, _ = _recorded_finish(monkeypatch)
     enc = Encoder(90, device=dev)

@@ -254,11 +254,12 @@ def test_fused_route_is_explicit():
     enc.set_progressive(True)
     enc.encode(px, 16, 16, tt.ColorType.RGB)
     assert enc.last_encode_path == "device-v2"
-    config = enc._config()
+    plan = enc._plan(16, 16, tt.ColorType.RGB)
+    assert plan.route == "device-v2"
     params = _tparams(_config(90, SamplingFactor.F_1_1))
     with pytest.raises(ValueError, match="interleaved"):
-        tde.device_encode_scans(torch.from_numpy(px), 16, 16, tt.ColorType.RGB,
-                                config, params, fused_p1=True)
+        tde.device_encode_scans(torch.from_numpy(px),
+                                plan._replace(route="device-v2-fused"), params)
     sink = []
 
     class Sink:

@@ -259,8 +259,8 @@ def test_exact_stream_bits_matches_stream(sf, scans, ct):
     plan = tde.build_scan_plan(layout, comps, cfg)
     _, meta = tde._pack_scans_v2(streams, plan, params, 224)
     assert bits == int(meta[1:1 + len(plan)].sum())
-    from tpuenc_torch.api import _plan_pack_rows
+    from tpuenc_torch.plan import make_plan
 
-    rows = _plan_pack_rows(w, h, ct, cfg)
+    rows = make_plan(w, h, ct, cfg).pack_rows
     assert (thuffopt.budget_hint_from_bits(bits, rows)
             == jhuffopt.budget_hint_from_bits(bits, rows))

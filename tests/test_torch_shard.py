@@ -34,7 +34,6 @@ jax = pytest.importorskip("jax")
 
 import tpuenc  # noqa: E402
 import tpuenc_torch as tt  # noqa: E402
-from tpuenc_torch import api as tapi  # noqa: E402
 from tpuenc.core.tables import default_tables  # noqa: E402
 from tpuenc.core.types import EncoderConfig as JaxConfig  # noqa: E402
 from tpuenc.entropy.device_encode import tables_to_device  # noqa: E402
@@ -166,9 +165,9 @@ STEPS_22 = [
     _case("step22_progressive", "step", 85, [PROG, OPT], 48, 128,
           seeds=(4, 5, 6, 7)),
 ]
-# (batch_route, route or its ValueError).  The route takes a stripe of
-# any size: config 5 (16384x16384 YCCK 4:2:0) over (2, 2) is 5,242,880
-# blocks a stripe, past api.DEVICE_BLOCK_LIMIT.
+# (the route of encode_batch's plan, route or its ValueError).  The route
+# takes a stripe of any size: config 5 (16384x16384 YCCK 4:2:0) over (2, 2)
+# is 5,242,880 blocks a stripe, past plan.DEVICE_BLOCK_LIMIT.
 UNALIGNED = "ValueError: sharded encode requires MCU-aligned dimensions"
 ROUTES_22 = [
     (_case("route_general", "route", 75, [], 32, 64, n=2),
@@ -370,7 +369,7 @@ def test_stripe_pack_matches_tpuenc(ranks14):
 
 @pytest.mark.parametrize("case,want", ROUTES_22, ids=_ids)
 def test_route_is_chosen_up_front(ranks22, case, want):
-    """``batch_route``: the striped route where ``route`` takes the batch
+    """The plan's route: the striped route where ``route`` takes the batch
     (a stripe past the whole-image limits included), else
     ``Encoder.encode_batch``'s route name; ``encode_batch([])`` is []."""
     for result in ranks22:
@@ -380,9 +379,9 @@ def test_route_is_chosen_up_front(ranks22, case, want):
         assert empty == ([] if case["n"] == 0 else None)
     if want[0] != "sharded-general":
         enc = _torch_encoder(case)
-        assert tapi.batch_route(case["n"], case["w"], case["h"],
-                                getattr(tt.ColorType, case["color_type"]),
-                                enc._config()) == want[0]
+        assert enc._plan(case["w"], case["h"],
+                         getattr(tt.ColorType, case["color_type"]),
+                         n=case["n"]).route == want[0]
 
 
 def test_dryrun_multichip(ranks22):

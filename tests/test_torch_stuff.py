@@ -25,7 +25,7 @@ import torch  # noqa: E402
 import tpuenc  # noqa: E402
 import tpuenc_torch as tt  # noqa: E402
 from tpuenc.entropy import device_stuff as jds  # noqa: E402
-from tpuenc_torch import api  # noqa: E402
+from tpuenc_torch import plan as planning  # noqa: E402
 from tpuenc_torch.entropy import device_encode as tde  # noqa: E402
 from tpuenc_torch.entropy import device_stuff as tds  # noqa: E402
 from tpuenc_torch.entropy import native  # noqa: E402
@@ -280,7 +280,7 @@ def test_chunked_paths_keep_the_host_finish(scans, route, monkeypatch,
     im = rng.integers(0, 256, (24, 40, 3), np.uint8)
     want = _encoder(scans=scans).encode(im, 40, 24, tt.ColorType.RGB)
     assert len(finishes) == 1
-    monkeypatch.setattr(api, "DEVICE_BLOCK_LIMIT", 0)
+    monkeypatch.setattr(planning, "DEVICE_BLOCK_LIMIT", 0)
     enc = _encoder(scans=scans)
     assert enc.encode(im, 40, 24, tt.ColorType.RGB) == want
     assert enc.last_encode_path == route

@@ -20,7 +20,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import tpuenc_torch as tt
-from tpuenc_torch import api, tracing
+from tpuenc_torch import plan as planning
+from tpuenc_torch import tracing
 from tpuenc_torch.entropy import device_encode as de
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -48,7 +49,7 @@ def tracer_off():
 @pytest.fixture
 def chunked(monkeypatch):
     """The chunked routes at a small size: the whole-image limit at 0."""
-    monkeypatch.setattr(api, "DEVICE_BLOCK_LIMIT", 0)
+    monkeypatch.setattr(planning, "DEVICE_BLOCK_LIMIT", 0)
 
 
 def _encoder(**settings):

@@ -21,22 +21,23 @@ pieces as they are made, from an array or a pull source of pixel rows.
 from __future__ import annotations
 
 import abc
-from typing import List, Optional, Sequence, Tuple, Union
+import sys
+import types
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from . import plan as planning
 from . import tracing
 from .core import errors
-from .core.tables import QuantizationTable, default_tables, quantization_table
+from .core.tables import default_tables, quantization_table
 from .core.types import (
     ColorType,
-    Component,
     EncoderConfig,
     JpegColorType,
     PixelDensity,
     SamplingFactor,
-    init_components,
 )
 from .entropy import device_encode as de
 from .entropy.chunked import iter_encode_interleaved_chunked
@@ -48,47 +49,35 @@ from .entropy.huffopt import (
     tables_from_histograms,
 )
 from .jfif import markers, segments
-from .kernels.pipeline import fn_cm, scan_layout
+from .kernels.pipeline import fn_cm
+from .plan import (
+    CHUNKED,
+    CHUNKED_MULTIPASS,
+    CHUNKED_STREAM,
+    PER_IMAGE,
+    Plan,
+    make_plan,
+)
 
 __all__ = ["Encoder", "ImageBuffer"]
-
-# Routing limits of the whole-image device path (tpuenc/api.py:60-68):
-# past either, an image goes through the bounded-memory chunked paths.
-DEVICE_BLOCK_LIMIT = 3_000_000
-DEVICE_PACK_ROWS_LIMIT = 12_000_000
 
 # A streamed plan of more scans comes as one body piece (tpuenc/api.py:416).
 STREAM_MAX_SCANS = 48
 
 
-def _plan_pack_rows(width, height, color_type, config) -> int:
-    """Pack rows of the encode's shared P2-P4 merge: one per block per
-    scan (tpuenc/api.py:71-83)."""
-    layout = scan_layout(width, height, color_type, config)
-    if layout["interleaved"]:
-        return len(layout["mcu_block_comps"]) * layout["mcu_count"]
-    scans_per_comp = config.progressive_scans or 1  # 1 DC + (n-1) AC bands
-    return sum(layout["comp_block_counts"]) * scans_per_comp
+class _Api(types.ModuleType):
+    """``api.DEVICE_BLOCK_LIMIT`` and ``api.DEVICE_PACK_ROWS_LIMIT``, the
+    names ``tpuenc`` gives the whole-image limits, read and set
+    ``plan``'s: lowering them sends small images to the chunked paths.
+    The port's own code and tests use ``plan``'s names; these are kept for
+    callers from outside the port."""
 
 
-def _over_limits(width, height, color_type, config) -> bool:
-    """Whether the encode is past the whole-image path's limits: its block
-    count, as ``tpuenc`` counts it, or the pack rows of its plan."""
-    return ((width // 8 + 1) * (height // 8 + 1) > DEVICE_BLOCK_LIMIT
-            or _plan_pack_rows(width, height, color_type, config)
-            > DEVICE_PACK_ROWS_LIMIT)
-
-
-def batch_route(n: int, width: int, height: int, color_type: ColorType,
-                config) -> str:
-    """The route of ``Encoder.encode_batch`` for ``n`` images of this size,
-    as ``last_encode_path`` names it: images past the whole-image limits go
-    image by image (``de.PER_IMAGE``), as in ``tpuenc``; any other batch
-    takes ``entropy.device_encode.batch_route``'s."""
-    with tracing.span("plan"):
-        if _over_limits(width, height, color_type, config):
-            return de.PER_IMAGE
-        return de.batch_route(n, width, height, color_type, config)
+for _name in ("DEVICE_BLOCK_LIMIT", "DEVICE_PACK_ROWS_LIMIT"):
+    setattr(_Api, _name, property(
+        lambda _, name=_name: getattr(planning, name),
+        lambda _, value, name=_name: setattr(planning, name, value)))
+sys.modules[__name__].__class__ = _Api
 
 
 def _check_dims(width: int, height: int) -> None:
@@ -165,11 +154,14 @@ class Encoder:
     optimized-table encodes (optimized tables make the scans sequential)
     take the split path as ever ("device-v2").
 
-    The whole-image routes, and so ``encode_batch``'s per-image route,
-    finish their scans on the encode device (``entropy.device_stuff``:
-    byte alignment, 1-padding, 0xFF stuffing and RST markers) and copy
-    back only the finished bytes.  The single-program batch and the
+    The whole-image routes, ``encode_batch``'s per-image route and its
+    single program finish their scans on the encode device
+    (``entropy.device_stuff``: byte alignment, 1-padding, 0xFF stuffing
+    and RST markers) and copy back only the finished bytes.  Only the
     chunked paths finish on the host, as in ``tpuenc``.
+
+    Each call makes one :class:`plan.Plan` (:meth:`_plan`), which names
+    its route and holds its scan plan, and hands it down.
     """
 
     def __init__(self, quality: int, *, device, fused_p1: bool = False,
@@ -303,6 +295,14 @@ class Encoder:
             density=self._density,
         )
 
+    def _plan(self, width: int, height: int, color_type: ColorType,
+              n: Optional[int] = None, stream: bool = False) -> Plan:
+        """The call's plan on the encoder's settings
+        (:func:`plan.make_plan`): ``encode``'s, ``encode_stream``'s with
+        ``stream``, or ``encode_batch``'s for ``n`` images."""
+        return make_plan(width, height, color_type, self._config(),
+                         fused_p1=self.fused_p1, n=n, stream=stream)
+
     def encode(
         self,
         data: Union[bytes, np.ndarray],
@@ -314,8 +314,8 @@ class Encoder:
         with tracing.request("encode"):
             color_type = ColorType(color_type)
             pixels = _validate_pixels(data, width, height, color_type)
-            return self._finish(
-                self._encode_pixels(pixels, width, height, color_type))
+            return self._finish(self._encode_pixels(
+                pixels, self._plan(width, height, color_type)))
 
     def encode_image(self, image: ImageBuffer) -> bytes:
         """Encode a user-supplied :class:`ImageBuffer`
@@ -340,9 +340,8 @@ class Encoder:
                 )
                 if ct_in.bytes_per_pixel == 1:
                     stacked = stacked[..., 0]
-                return self._finish(
-                    self._encode_pixels(stacked, width, height, ct_in)
-                )
+                return self._finish(self._encode_pixels(
+                    stacked, self._plan(width, height, ct_in)))
             # Planes already in JPEG colorspace: reuse the passthrough types.
             ct = {
                 JpegColorType.LUMA: ColorType.LUMA,
@@ -360,8 +359,8 @@ class Encoder:
                 stacked = 255 - stacked
             if jct is JpegColorType.LUMA:
                 stacked = stacked[..., 0]
-            return self._finish(
-                self._encode_pixels(stacked, width, height, ct))
+            return self._finish(self._encode_pixels(
+                stacked, self._plan(width, height, ct)))
 
     def encode_stream(
         self,
@@ -405,59 +404,45 @@ class Encoder:
         else:
             source = None
             pixels = _validate_pixels(data, width, height, color_type)
-        config = self._config()
-        if config.mode() != "interleaved":
+        plan = self._plan(width, height, color_type, stream=True)
+        if plan.route != CHUNKED_STREAM:
             if pixels is None:  # multi-pass needs the whole image
                 pixels = _validate_pixels(_drain_source(source, height),
                                           width, height, color_type)
-            yield from self._stream_multipass(pixels, width, height,
-                                              color_type, config)
+            yield from self._stream_multipass(pixels, plan)
             return
 
-        jct = color_type.jpeg_color_type
-        components = init_components(jct, config.sampling_factor)
-        q_tables, huffman, params = self._default_tables(config)
-        prefix = self._leading_segments(config, jct)
-        prefix += self._frame_header(width, height, components, q_tables,
-                                     huffman, config, len(components))
-        layout = scan_layout(width, height, color_type, config)
-        ((_, _, spectral),) = de.build_scan_plan(layout, components, config)
-        prefix += segments.sos(list(components), spectral)
-        yield bytes(prefix)
+        q_tables, huffman, params = self._default_tables(plan.config)
+        ((_, _, spectral),) = plan.scans
+        yield (self._head(plan, q_tables, huffman)
+               + segments.sos(list(plan.components), spectral))
 
-        self.last_encode_path = "device-chunked-stream"
+        self.last_encode_path = plan.route
         ladder = list(de.BUDGET_LADDER)
         yield from iter_encode_interleaved_chunked(
-            pixels if source is None else source, width, height, color_type,
-            config, params, chunk_mcu_rows, ladder)
+            pixels if source is None else source, plan, params,
+            chunk_mcu_rows, ladder)
         self.last_budget = ladder[0]
         yield segments.marker(markers.EOI)
 
-    def _stream_multipass(self, pixels, width, height, color_type, config):
+    def _stream_multipass(self, pixels, plan: Plan):
         """Per-scan streaming of the multi-pass modes (tpuenc/api.py:391-476):
         the coefficients are materialized by design (encoder.rs:810-864,
         869-975), but each scan goes to the caller as it is written:
         leading segments and frame header with the first scan, then each
         further scan's SOS and payload, then EOI."""
-        jct = color_type.jpeg_color_type
-        components = init_components(jct, config.sampling_factor)
-        if len(components) * (config.progressive_scans or 1) > STREAM_MAX_SCANS:
-            yield self._encode_pixels(pixels, width, height, color_type)
+        if len(plan.scans) > STREAM_MAX_SCANS:
+            yield self._encode_pixels(pixels, plan)
             return
-        q_tables, huffman, params = self._default_tables(config)
-        scans = self._scan_payloads(pixels, width, height, color_type, config,
-                                    huffman, params)
-        head = [self._leading_segments(config, jct), self._frame_header(
-            width, height, components, q_tables, huffman, config,
-            len(components))]
-        layout = scan_layout(width, height, color_type, config)
-        plan = de.build_scan_plan(layout, components, config)
+        q_tables, huffman, params = self._default_tables(plan.config)
+        scans = self._scan_payloads(pixels, plan, huffman, params)
+        head = [self._head(plan, q_tables, huffman)]
         # Every piece is made before the first goes out: a payload may view
         # the encoder's reused buffer, which a call between pieces refills.
         pieces = []
-        for (stream_idx, _, spectral), payload in zip(plan, scans):
+        for (stream_idx, _, spectral), payload in zip(plan.scans, scans):
             pieces.append(b"".join(
-                [*head, segments.sos([components[stream_idx]], spectral),
+                [*head, segments.sos([plan.components[stream_idx]], spectral),
                  *payload]))
             head = []
         yield from pieces
@@ -477,7 +462,7 @@ class Encoder:
         ``images``: an iterable of pixel buffers (bytes or arrays), each
         laid out as for :meth:`encode` and checked as it is.  The route
         is chosen up front from the batch's size, shape and settings
-        (:func:`batch_route`) and named in ``last_encode_path``:
+        (:func:`plan.make_plan`) and named in ``last_encode_path``:
 
         * ``"device-batch"``: interleaved, default tables, at most 3M
           blocks, a restart interval (if any) that divides each image's
@@ -497,40 +482,33 @@ class Encoder:
         (``new_file`` / ``new_writer``) as :meth:`encode` sends it.
         """
         with tracing.request("encode_batch"):
-            return self._encode_batch(images, width, height, color_type)
+            color_type = ColorType(color_type)
+            pixel_arrays = [_validate_pixels(data, width, height, color_type)
+                            for data in images]
+            if not pixel_arrays:
+                _check_dims(width, height)
+                return []
+            return self._encode_batch(pixel_arrays, self._plan(
+                width, height, color_type, n=len(pixel_arrays)))
 
-    def _encode_batch(self, images, width, height, color_type) -> List[bytes]:
-        color_type = ColorType(color_type)
-        pixel_arrays = [_validate_pixels(data, width, height, color_type)
-                        for data in images]
-        if not pixel_arrays:
-            _check_dims(width, height)
-            return []
-        config = self._config()
-        route = batch_route(len(pixel_arrays), width, height, color_type,
-                            config)
-        if route == de.PER_IMAGE:
+    def _encode_batch(self, pixel_arrays, plan: Plan) -> List[bytes]:
+        """The validated images' files on ``plan``'s route."""
+        if plan.route == PER_IMAGE:
+            image = plan._replace(route=plan.image_route)
             results, rungs = [], []
             for px in pixel_arrays:
-                results.append(self._finish(
-                    self._encode_pixels(px, width, height, color_type)))
+                results.append(self._finish(self._encode_pixels(px, image)))
                 rungs.append(self.last_budget)
-            self.last_encode_path, self.last_budget = route, max(rungs)
+            self.last_encode_path, self.last_budget = plan.route, max(rungs)
             return results
 
-        q_tables, huffman, params = self._default_tables(config)
+        q_tables, huffman, params = self._default_tables(plan.config)
         batch_scans, budget = de.device_encode_batch_single(
-            pixel_arrays, width, height, color_type, config, params,
-            self._pinned_buffer())
-        self.last_encode_path, self.last_budget = route, budget
-
-        jct = color_type.jpeg_color_type
-        components = init_components(jct, config.sampling_factor)
-        leading = self._leading_segments(config, jct)
+            pixel_arrays, plan, params, self._pinned_buffer())
+        self.last_encode_path, self.last_budget = plan.route, budget
+        head = self._head(plan, q_tables, huffman)
         return [self._finish(self._assemble_scans(
-            leading, [[scan] for scan in scans], width, height, color_type,
-            config, components, q_tables, huffman))
-            for scans in batch_scans]
+            plan, head, [[scan] for scan in scans])) for scans in batch_scans]
 
     def _finish(self, payload: bytes) -> bytes:
         try:
@@ -549,9 +527,13 @@ class Encoder:
             self._pinned = de.PinnedBuffer()
         return self._pinned
 
-    def _leading_segments(self, config, jct) -> bytearray:
-        """SOI + JFIF APP0 + (Adobe APP14) + user APP segments — everything
-        before the frame header (reference encoder.rs:536-554)."""
+    def _head(self, plan: Plan, q_tables, huffman) -> bytes:
+        """Everything before the first SOS: SOI, JFIF APP0, (Adobe APP14),
+        the user APP segments (reference encoder.rs:536-554), then the
+        frame header: SOF, DQTs, DHTs and the optional DRI
+        (encoder.rs:633-667)."""
+        config, components = plan.config, plan.components
+        jct = plan.color_type.jpeg_color_type
         out = bytearray()
         out += segments.marker(markers.SOI)
         out += segments.app0_jfif(config.density)
@@ -561,22 +543,18 @@ class Encoder:
             out += segments.app14_adobe(2)
         for nr, data in self._app_segments:
             out += segments.segment(markers.APP(nr), data)
-        return out
-
-    def _route(self, config, width, height, color_type) -> str:
-        """The path of a single-image encode, as ``last_encode_path`` names
-        it (tpuenc/api.py:700-750): past the whole-image limits the
-        interleaved mode takes "device-chunked" (the split path even under
-        ``fused_p1``: there is no fused chunked path) and every other mode
-        "device-chunked-multipass", both with their host finish; within
-        them "device-v2", or "device-v2-fused" for the interleaved mode
-        under ``fused_p1``, both with the device finish."""
-        interleaved = config.mode() == "interleaved"
-        with tracing.span("plan"):
-            over = _over_limits(width, height, color_type, config)
-        if over:
-            return "device-chunked" if interleaved else "device-chunked-multipass"
-        return "device-v2-fused" if self.fused_p1 and interleaved else "device-v2"
+        out += segments.sof(plan.width, plan.height, components,
+                            config.progressive_scans is not None)
+        out += segments.dqt(0, q_tables[0])
+        out += segments.dqt(1, q_tables[1])
+        out += segments.dht(0, 0, huffman[0][0])
+        out += segments.dht(1, 0, huffman[0][1])
+        if len(components) >= 3:
+            out += segments.dht(0, 1, huffman[1][0])
+            out += segments.dht(1, 1, huffman[1][1])
+        if config.restart_interval is not None:
+            out += segments.dri(config.restart_interval)
+        return bytes(out)
 
     def _default_tables(self, config):
         """The (luma, chroma) quantization tables, the default Huffman
@@ -598,40 +576,32 @@ class Encoder:
             return (q_tables, [list(pair) for pair in default_tables()],
                     de.EncodeParams(*self._quant[key], *self._default_huffman))
 
-    def _encode_pixels(
-        self, pixels: np.ndarray, width: int, height: int, color_type: ColorType
-    ) -> bytes:
-        config = self._config()
-        jct = color_type.jpeg_color_type
-        components = init_components(jct, config.sampling_factor)
-        q_tables, huffman, params = self._default_tables(config)
-        scans = self._scan_payloads(pixels, width, height, color_type, config,
-                                    huffman, params)
-        return self._assemble_scans(self._leading_segments(config, jct),
-                                    scans, width, height, color_type, config,
-                                    components, q_tables, huffman)
+    def _encode_pixels(self, pixels: np.ndarray, plan: Plan) -> bytes:
+        """One image's file on ``plan``'s route."""
+        q_tables, huffman, params = self._default_tables(plan.config)
+        scans = self._scan_payloads(pixels, plan, huffman, params)
+        return self._assemble_scans(plan, self._head(plan, q_tables, huffman),
+                                    scans)
 
-    def _scan_payloads(self, pixels, width, height, color_type, config,
-                       huffman, params) -> List[list]:
-        """Every scan's entropy payload in plan order, on the route that
-        :meth:`_route` names, which goes to ``last_encode_path`` with the
-        budget rung to ``last_budget``: each the list of bytes-like parts
-        that joined make it, as the route's finish left them (one view of
-        the device finish's output, valid until the encoder's next encode,
-        or the streaming stuffer's pieces).  ``huffman`` is replaced in
-        place by the optimized tables when the config asks for them."""
-        route = self._route(config, width, height, color_type)
-        if route.startswith("device-chunked"):
+    def _scan_payloads(self, pixels, plan: Plan, huffman,
+                       params) -> List[list]:
+        """Every scan's entropy payload in plan order, on ``plan``'s route,
+        which goes to ``last_encode_path`` with the budget rung to
+        ``last_budget``: each the list of bytes-like parts that joined make
+        it, as the route's finish left them (one view of the device
+        finish's output, valid until the encoder's next encode, or the
+        streaming stuffer's pieces).  ``huffman`` is replaced in place by
+        the optimized tables when the config asks for them."""
+        config = plan.config
+        if plan.route in (CHUNKED, CHUNKED_MULTIPASS):
             ladder = list(de.BUDGET_LADDER)
-            if route == "device-chunked":
+            if plan.route == CHUNKED:
                 scans = [list(iter_encode_interleaved_chunked(
-                    pixels, width, height, color_type, config, params,
-                    ladder=ladder))]
+                    pixels, plan, params, ladder=ladder))]
             else:
-                scans = encode_multipass_chunked(
-                    pixels, width, height, color_type, config, huffman, params,
-                    ladder=ladder)
-            self.last_encode_path, self.last_budget = route, ladder[0]
+                scans = encode_multipass_chunked(pixels, plan, huffman,
+                                                 params, ladder=ladder)
+            self.last_encode_path, self.last_budget = plan.route, ladder[0]
             return scans
 
         with tracing.span("upload"):
@@ -645,48 +615,34 @@ class Encoder:
             # K.2 build per table on the host, and the same device streams
             # packed with the new tables, the ladder starting at the rung
             # that the exact stream size covers.
-            components = init_components(color_type.jpeg_color_type,
-                                         config.sampling_factor)
-            streams = fn_cm(px, width, height, color_type, config,
-                            params.reciprocals, params.corrections)
-            hists = scan_histograms(streams, components,
+            streams = fn_cm(px, plan.width, plan.height, plan.color_type,
+                            config, params.reciprocals, params.corrections)
+            hists = scan_histograms(streams, plan.components,
                                     config.progressive_scans)
             with tracing.span("sync.hist"):
                 hists = hists.cpu().numpy()
-            hint = optimize_tables(hists, huffman, width, height, color_type,
-                                   config)
+            hint = optimize_tables(hists, huffman, plan)
             dc, ac = de.huffman_params(huffman, self.device)
             params = params._replace(dc=dc, ac=ac)
             scans, budget = de.device_encode_scans(
-                px, width, height, color_type, config, params,
-                comp_streams=streams, budget_hint=hint, pinned=pinned,
-            )
+                px, plan, params, comp_streams=streams, budget_hint=hint,
+                pinned=pinned)
         else:
-            scans, budget = de.device_encode_scans(
-                px, width, height, color_type, config, params,
-                fused_p1=route == "device-v2-fused", pinned=pinned,
-            )
-        self.last_encode_path, self.last_budget = route, budget
+            scans, budget = de.device_encode_scans(px, plan, params,
+                                                   pinned=pinned)
+        self.last_encode_path, self.last_budget = plan.route, budget
         return [[scan] for scan in scans]
 
-    def _assemble_scans(
-        self, leading, scan_payloads, width, height, color_type, config,
-        components, q_tables, huffman,
-    ) -> bytes:
-        """The whole file, gathered in one copy: ``leading`` (SOI and the
-        APP segments), the frame header, then per scan of the plan shared
-        with the device path its SOS and the parts of its payload
-        (``scan_payloads``: each scan's list of bytes-like parts), then
-        EOI."""
+    def _assemble_scans(self, plan: Plan, head, scan_payloads) -> bytes:
+        """The whole file, gathered in one copy: ``head`` (everything
+        before the first SOS, :meth:`_head`), then per scan of ``plan`` its
+        SOS and the parts of its payload (``scan_payloads``: each scan's
+        list of bytes-like parts), then EOI."""
         with tracing.span("assemble"):
-            layout = scan_layout(width, height, color_type, config)
-            plan = de.build_scan_plan(layout, components, config)
-            parts = [leading, self._frame_header(
-                width, height, components, q_tables, huffman, config,
-                len(components),
-            )]
-            interleaved = layout["interleaved"]
-            for (stream_idx, _, spectral), payload in zip(plan,
+            parts = [head]
+            components = plan.components
+            interleaved = plan.layout["interleaved"]
+            for (stream_idx, _, spectral), payload in zip(plan.scans,
                                                            scan_payloads):
                 sos_comps = (list(components) if interleaved
                              else [components[stream_idx]])
@@ -697,46 +653,19 @@ class Encoder:
             tracing.count("assembled_bytes", len(out))
             return out
 
-    def _frame_header(
-        self,
-        width: int,
-        height: int,
-        components: Sequence[Component],
-        q_tables: Sequence[QuantizationTable],
-        huffman,
-        config: EncoderConfig,
-        num_components: int,
-    ) -> bytes:
-        """SOF + DQTs + DHTs + optional DRI (reference encoder.rs:633-667)."""
-        out = bytearray()
-        out += segments.sof(
-            width, height, components, config.progressive_scans is not None
-        )
-        out += segments.dqt(0, q_tables[0])
-        out += segments.dqt(1, q_tables[1])
-        out += segments.dht(0, 0, huffman[0][0])
-        out += segments.dht(1, 0, huffman[0][1])
-        if num_components >= 3:
-            out += segments.dht(0, 1, huffman[1][0])
-            out += segments.dht(1, 1, huffman[1][1])
-        if config.restart_interval is not None:
-            out += segments.dri(config.restart_interval)
-        return bytes(out)
 
-
-def optimize_tables(hists, huffman, width, height, color_type, config) -> int:
+def optimize_tables(hists, huffman, plan: Plan) -> int:
     """The host half of the two-pass mode: replace ``huffman``'s leading
     (dc, ac) pairs in place with the K.2 tables built from ``hists`` (the
     (T, 2, 257) device counts, the reserved symbol not yet seeded) and
-    return the ladder's budget hint from the exact stream size."""
+    return the ladder's budget hint from the exact stream size and
+    ``plan``'s pack rows."""
     with tracing.span("tables"):
         pairs = [(h[0], h[1]) for h in np.asarray(hists, dtype=np.int64)]
         for i, tables in enumerate(tables_from_histograms(pairs)):
             huffman[i] = list(tables)
         return budget_hint_from_bits(
-            exact_stream_bits(pairs, huffman[:len(pairs)]),
-            _plan_pack_rows(width, height, color_type, config),
-        )
+            exact_stream_bits(pairs, huffman[:len(pairs)]), plan.pack_rows)
 
 
 def _drain_source(source, height: int):

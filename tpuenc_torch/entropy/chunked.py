@@ -33,15 +33,10 @@ import torch
 
 from .. import tracing
 from ..core import errors
-from ..core.types import ColorType, EncoderConfig
-from ..kernels.pipeline import fn_cm, scan_layout
+from ..core.types import ColorType
+from ..kernels.pipeline import fn_cm
 from . import native
-from .device_encode import (
-    BUDGET_LADDER,
-    EncodeParams,
-    PinnedBuffer,
-    build_scan_plan,
-)
+from .device_encode import BUDGET_LADDER, EncodeParams, PinnedBuffer
 from .pallas_pack import dc_diffs_from_dc, device_scan_pack
 
 
@@ -380,25 +375,24 @@ def pack_chunks(chunks, spec, params: EncodeParams,
     stuffer.finish()
 
 
-def iter_encode_interleaved_chunked(pixels, width: int, height: int,
-                                    color_type: ColorType,
-                                    config: EncoderConfig,
-                                    params: EncodeParams,
+def iter_encode_interleaved_chunked(pixels, plan, params: EncodeParams,
                                     chunk_mcu_rows: int = 64, ladder=None):
     """Bounded-memory interleaved scan encode, yielding final scan bytes
     (stuffed, RST markers inline) as MCU-row bands complete.
 
     ``pixels``: the whole array or a pull source (:func:`read_rows`);
+    ``plan``: the call's ``plan.Plan``, of the interleaved mode;
     ``params``: the encoder's quantizers and packed tables on its device,
     where the chunks run; ``ladder``: the budget rungs to try, climbed in
     place (default: all of ``BUDGET_LADDER``), so that the caller can read
     the last rung from it.  Only the last chunk is partial."""
-    color_type = ColorType(color_type)
+    width, height = plan.width, plan.height
+    color_type, config = plan.color_type, plan.config
     if config.mode() != "interleaved":
         raise ValueError(f"the chunked interleaved path takes an interleaved "
                          f"config, got {config.mode()}")
-    layout = scan_layout(width, height, color_type, config)
-    ((_, spec, _),) = build_scan_plan(layout, layout["components"], config)
+    layout = plan.layout
+    ((_, spec, _),) = plan.scans
     pat = len(spec.dc_tab_pattern)
     mcu_h = 8 * layout["max_v"]
     num_rows = -(-height // mcu_h)
@@ -427,14 +421,11 @@ def iter_encode_interleaved_chunked(pixels, width: int, height: int,
                            list(BUDGET_LADDER) if ladder is None else ladder)
 
 
-def encode_interleaved_chunked(pixels, width: int, height: int,
-                               color_type: ColorType, config: EncoderConfig,
-                               params: EncodeParams, chunk_mcu_rows: int = 64,
-                               ladder=None) -> bytes:
+def encode_interleaved_chunked(pixels, plan, params: EncodeParams,
+                               chunk_mcu_rows: int = 64, ladder=None) -> bytes:
     """The single scan's entropy bytes (stuffed, RST markers inline) of
     :func:`iter_encode_interleaved_chunked`, joined."""
     pieces = list(iter_encode_interleaved_chunked(
-        pixels, width, height, color_type, config, params, chunk_mcu_rows,
-        ladder))
+        pixels, plan, params, chunk_mcu_rows, ladder))
     with tracing.span("assemble"):
         return b"".join(pieces)

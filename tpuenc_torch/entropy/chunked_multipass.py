@@ -29,16 +29,10 @@ from typing import List
 import torch
 
 from .. import tracing
-from ..core.types import ColorType, EncoderConfig
-from ..kernels.pipeline import fn_cm, scan_layout
+from ..kernels.pipeline import fn_cm
 from .chunked import StreamingStuffer, pack_chunks, read_rows
 from .device import scan_histograms
-from .device_encode import (
-    BUDGET_LADDER,
-    EncodeParams,
-    build_scan_plan,
-    huffman_params,
-)
+from .device_encode import BUDGET_LADDER, EncodeParams, huffman_params
 from .huffopt import tables_from_histograms
 from .pallas_pack import dc_diffs_from_dc
 
@@ -47,9 +41,7 @@ from .pallas_pack import dc_diffs_from_dc
 PACK_CHUNK_BLOCKS = 1 << 20
 
 
-def encode_multipass_chunked(pixels, width: int, height: int,
-                             color_type: ColorType, config: EncoderConfig,
-                             huffman, params: EncodeParams,
+def encode_multipass_chunked(pixels, plan, huffman, params: EncodeParams,
                              chunk_mcu_rows: int = 64,
                              pack_chunk: int = PACK_CHUNK_BLOCKS,
                              ladder=None) -> List[List[bytes]]:
@@ -60,21 +52,22 @@ def encode_multipass_chunked(pixels, width: int, height: int,
     joined make it.
 
     ``pixels``: the whole array or a pull source (``chunked.read_rows``);
-    ``huffman``: the table list, replaced in place by the optimized
+    ``plan``: the call's ``plan.Plan``, of a sequential or progressive
+    mode; ``huffman``: the table list, replaced in place by the optimized
     tables when the config asks for them (the caller writes its DHTs);
     ``params``: the quantizers and default tables on the device;
     ``chunk_mcu_rows`` / ``pack_chunk``: the coefficient and pack chunk
     sizes (a component's pack chunk is never wider than the component,
     rounded up to 256 blocks); ``ladder``: as
     ``chunked.iter_encode_interleaved_chunked`` takes it."""
-    color_type = ColorType(color_type)
+    width, height = plan.width, plan.height
+    color_type, config = plan.color_type, plan.config
     if config.mode() == "interleaved":
         raise ValueError("the chunked multipass path takes a sequential or "
                          "progressive config")
-    layout = scan_layout(width, height, color_type, config)
-    components = layout["components"]
+    layout = plan.layout
+    components = plan.components
     counts = layout["comp_block_counts"]
-    plan = build_scan_plan(layout, components, config)
     device = params.dc.device
     mcu_h = 8 * layout["max_v"]
     num_rows = -(-height // mcu_h)
@@ -124,7 +117,7 @@ def encode_multipass_chunked(pixels, width: int, height: int,
 
     # ----- Phase 2: every scan packed in chunks of its store -----
     payloads = []
-    for stream_idx, spec, _ in plan:
+    for stream_idx, spec, _ in plan.scans:
         B = counts[stream_idx]
         store = stores[stream_idx]
         cb = pack_chunks_of[stream_idx]

@@ -15,10 +15,11 @@ and the host copies the finished bytes and splits them into scans.  A
 batch's single program finishes the same way, in one pass over every
 image: each image is a "scan" of its restart segments.
 
-A batch of same-shape images takes one of two routes, chosen up front
-(:func:`batch_route`): one program over every image's blocks
-(:func:`device_encode_batch_single`), or each image on its own through
-``Encoder.encode``'s path.
+The two routes here take the call's ``plan.Plan`` (its layout, scan
+plan, segment structure and route, decided once).  A batch of same-shape
+images takes one of two routes, chosen up front (``plan.make_plan``): one
+program over every image's blocks (:func:`device_encode_batch_single`),
+or each image on its own through ``Encoder.encode``'s path.
 
 The packer's capacities follow a words-per-block budget.  An encode starts
 at the lowest rung of :data:`BUDGET_LADDER` (or the rung learned for its
@@ -35,7 +36,7 @@ import numpy as np
 import torch
 
 from .. import tracing
-from ..core.types import ColorType, EncoderConfig
+from ..core.types import EncoderConfig
 from . import native
 from .device_pack import ScanSpec
 from .device_stuff import device_stuff as stuff_on_device
@@ -410,18 +411,6 @@ def seg_structure(layout, scan_plan):
             for si, spec, _ in scan_plan]
 
 
-def _plan(width: int, height: int, color_type: ColorType,
-          config: EncoderConfig):
-    """The scan layout of one image, its scan plan and each scan's
-    number of restart segments."""
-    from ..kernels.pipeline import scan_layout
-
-    with tracing.span("plan"):
-        layout = scan_layout(width, height, color_type, config)
-        scan_plan = build_scan_plan(layout, layout["components"], config)
-        return layout, scan_plan, seg_structure(layout, scan_plan)
-
-
 def _ladder(key, budget_hint: int = 0):
     """The rungs to try, in order: from the rung learned under ``key``,
     else from the first that covers ``budget_hint``, else all."""
@@ -433,21 +422,20 @@ def _ladder(key, budget_hint: int = 0):
     return budgets
 
 
-def device_encode_scans(pixels, width: int, height: int,
-                        color_type: ColorType, config: EncoderConfig,
-                        params: EncodeParams, comp_streams=None,
-                        budget_hint: int = 0, fused_p1: bool = False,
-                        pinned=None):
-    """Encode every scan of ``pixels`` (an (H, W[, C]) uint8 tensor on the
-    params' device).  ``comp_streams``: the coefficient streams when they
-    are already on the device (the two-pass optimized-table flow), else
-    they are computed here.  ``budget_hint`` (words per pack row): without
-    a learned rung for this shape and config, the ladder starts at the
-    first rung that covers it; a learned rung wins over the hint.
-    ``fused_p1``: pack the one interleaved scan straight from its samples
-    with K8 (:func:`_pack_fused`) in place of K1 and K2; the bytes, the
-    overflow flags and so the rungs are the split path's.  It raises
-    ``ValueError`` for any other plan, and with ``comp_streams``.
+def device_encode_scans(pixels, plan, params: EncodeParams, comp_streams=None,
+                        budget_hint: int = 0, pinned=None):
+    """Encode every scan of ``plan`` (``plan.Plan``) from ``pixels`` (an
+    (H, W[, C]) uint8 tensor on the params' device).  ``comp_streams``:
+    the coefficient streams when they are already on the device (the
+    two-pass optimized-table flow), else they are computed here.
+    ``budget_hint`` (words per pack row): without a learned rung for this
+    shape and config, the ladder starts at the first rung that covers it;
+    a learned rung wins over the hint.  On the route "device-v2-fused" the
+    one interleaved scan is packed straight from its samples with K8
+    (:func:`_pack_fused`) in place of K1 and K2; the bytes, the overflow
+    flags and so the rungs are the split path's.  That route raises
+    ``ValueError`` for a plan that is not interleaved, and with
+    ``comp_streams``.
     The scans are finished on the device (:func:`_finish_scans_device`,
     the finished bytes copied into ``pinned``, a :class:`PinnedBuffer`,
     where given).  Returns ``(scans, budget)``: the per-scan entropy bytes
@@ -455,26 +443,28 @@ def device_encode_scans(pixels, width: int, height: int,
     output (:func:`_finish_scans_device`), and the budget rung that packed
     them."""
     from ..kernels.pipeline import fn_cm, fn_cm_samples
+    from ..plan import V2_FUSED
 
-    layout, scan_plan, segs = _plan(width, height, color_type, config)
-    if fused_p1 and (not layout["interleaved"] or comp_streams is not None):
+    fused = plan.route == V2_FUSED
+    if fused and (not plan.layout["interleaved"] or comp_streams is not None):
         raise ValueError("fused_p1 packs one interleaved scan from its pixels")
 
-    key = (width, height, color_type, config, pixels.device.type)
-    if fused_p1:
-        samples = fn_cm_samples(pixels, width, height, color_type, config)
-        ((_, spec, _),) = scan_plan
-        qtabs = qtab_pattern(layout)
+    args = (plan.width, plan.height, plan.color_type, plan.config)
+    key = (*args, pixels.device.type)
+    if fused:
+        samples = fn_cm_samples(pixels, *args)
+        ((_, spec, _),) = plan.scans
+        qtabs = qtab_pattern(plan.layout)
 
         def pack(budget):
             return _pack_fused(samples, spec, qtabs, params, budget)
     else:
         if comp_streams is None:
-            comp_streams = fn_cm(pixels, width, height, color_type, config,
-                                 params.reciprocals, params.corrections)
+            comp_streams = fn_cm(pixels, *args, params.reciprocals,
+                                 params.corrections)
 
         def pack(budget):
-            return _pack_scans_v2(comp_streams, scan_plan, params, budget)
+            return _pack_scans_v2(comp_streams, plan.scans, params, budget)
     for budget in _ladder(key, budget_hint):
         buf, meta = pack(budget)
         with tracing.span("sync.meta"):
@@ -483,47 +473,16 @@ def device_encode_scans(pixels, width: int, height: int,
             tracing.count("ladder_retries")
             continue
         _memo_put(key, budget)
-        n = len(scan_plan)
+        n = len(plan.scans)
         return _finish_scans_device(buf, meta[1 + n:], meta_np[1 + n:],
-                                    segs, pinned), budget
-    raise RuntimeError(
-        f"every budget rung overflowed ({width}x{height} {color_type})"
-    )
+                                    plan.seg_structure, pinned), budget
+    raise RuntimeError(f"every budget rung overflowed ({plan.width}x"
+                       f"{plan.height} {plan.color_type})")
 
 
 # ---------------------------------------------------------------------------
 # Batches of same-shape images (tpuenc/entropy/device_encode.py:747-892).
 # ---------------------------------------------------------------------------
-
-# The single program packs at most this many blocks, counted as
-# n * (w // 8 + 1) * (h // 8 + 1) (tpuenc/entropy/device_encode.py:836).
-BATCH_BLOCK_LIMIT = 3_000_000
-
-# The routes of a batch, as ``Encoder.last_encode_path`` names them.
-SINGLE_PROGRAM = "device-batch"
-PER_IMAGE = "device-batch-per-image"
-
-
-def batch_route(n: int, width: int, height: int, color_type: ColorType,
-                config: EncoderConfig) -> str:
-    """The route of a batch of ``n`` images, chosen up front from
-    ``tpuenc``'s three conditions (``device_encode.py:775-777, 833-838``):
-    the interleaved mode with default tables and at most
-    :data:`BATCH_BLOCK_LIMIT` blocks in the batch, whose restart interval,
-    if any, divides each image's MCUs, takes :data:`SINGLE_PROGRAM`
-    (:func:`device_encode_batch_single`); any other batch takes
-    :data:`PER_IMAGE`, each image through ``Encoder.encode``'s path."""
-    from ..kernels.pipeline import scan_layout
-
-    if config.optimize_huffman_table or config.mode() != "interleaved":
-        return PER_IMAGE
-    if n * (width // 8 + 1) * (height // 8 + 1) > BATCH_BLOCK_LIMIT:
-        return PER_IMAGE
-    mcus = scan_layout(width, height, color_type, config)["mcu_count"]
-    if config.restart_interval and mcus % config.restart_interval:
-        return PER_IMAGE  # a restart segment would cross an image boundary
-    return SINGLE_PROGRAM
-
 
 class PinnedBuffer:
     """A page-locked host buffer that the device finish copies its
@@ -545,17 +504,16 @@ class PinnedBuffer:
         return self._buf[:nbytes].view(dtype)
 
 
-def device_encode_batch_single(images, width: int, height: int,
-                               color_type: ColorType, config: EncoderConfig,
-                               params: EncodeParams, pinned=None):
+def device_encode_batch_single(images, plan, params: EncodeParams,
+                               pinned=None):
     """The single-program route: every image's scan in ONE interleaved
     stream (``tpuenc``'s ``device_encode_batch_fused``).
 
-    ``images``: N (H, W[, C]) uint8 numpy arrays of one shape, whose batch
-    :func:`batch_route` sends to :data:`SINGLE_PROGRAM` (else
-    ``ValueError``); ``pinned``: a :class:`PinnedBuffer` for the copy of
-    the finished bytes on a CUDA device, None on the CPU.  Each image is
-    uploaded into its slot of one (N, H, W[, C]) tensor; one coefficient
+    ``images``: N (H, W[, C]) uint8 numpy arrays of one shape; ``plan``:
+    the batch's ``plan.Plan``, whose route must be the single program,
+    "device-batch", made for ``len(images)`` images (else ``ValueError``);
+    ``pinned``: a :class:`PinnedBuffer` for the copy of the finished bytes
+    on a CUDA device, None on the CPU.  Each image is uploaded into its slot of one (N, H, W[, C]) tensor; one coefficient
     pass over the batch (K1 once per component), the DC differences and K2
     over all N x mcu_count x blocks_per_mcu blocks, with restart segments
     of the interval or of one image, so the DC predictor resets at every
@@ -568,13 +526,16 @@ def device_encode_batch_single(images, width: int, height: int,
     budget)``, each image's scan a view of the finish's output
     (:func:`_finish_scans_device`)."""
     from ..kernels.pipeline import fn_cm
+    from ..plan import SINGLE_PROGRAM
 
     n = len(images)
-    if batch_route(n, width, height, color_type, config) != SINGLE_PROGRAM:
-        raise ValueError(f"a batch of {n} {width}x{height} images does not "
-                         f"take the single program")
-    layout, ((_, spec, _),), _ = _plan(width, height, color_type, config)
-    per_image = layout["mcu_count"] * len(layout["mcu_block_comps"])
+    args = (plan.width, plan.height, plan.color_type, plan.config)
+    if plan.route != SINGLE_PROGRAM or plan.n != n:
+        raise ValueError(f"a batch of {n} {plan.width}x{plan.height} images "
+                         f"does not take the single program on a plan of "
+                         f"{plan.route} for {plan.n}")
+    ((_, spec, _),) = plan.scans
+    per_image = plan.layout["mcu_count"] * len(plan.layout["mcu_block_comps"])
     spec = spec._replace(seg_blocks=spec.seg_blocks or per_image)
     segs_per_image = per_image // spec.seg_blocks
 
@@ -583,9 +544,9 @@ def device_encode_batch_single(images, width: int, height: int,
     for i, image in enumerate(images):
         with tracing.span("upload"):
             px[i].copy_(torch.from_numpy(image))
-    (stream,) = fn_cm(px, width, height, color_type, config,
-                      params.reciprocals, params.corrections, batched=True)
-    key = ("batch", width, height, color_type, config, n, px.device.type)
+    (stream,) = fn_cm(px, *args, params.reciprocals, params.corrections,
+                      batched=True)
+    key = ("batch", *args, n, px.device.type)
     for budget in _ladder(key):
         buf, meta = _pack_scans_v2((stream,), [(0, spec, None)], params,
                                    budget)
@@ -599,6 +560,5 @@ def device_encode_batch_single(images, width: int, height: int,
         scans = _finish_scans_device(buf, meta[2:], meta_np[2:],
                                      [segs_per_image] * n, pinned)
         return [[scan] for scan in scans], budget
-    raise RuntimeError(
-        f"every budget rung overflowed ({n} x {width}x{height} {color_type})"
-    )
+    raise RuntimeError(f"every budget rung overflowed ({n} x {plan.width}x"
+                       f"{plan.height} {plan.color_type})")

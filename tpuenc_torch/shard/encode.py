@@ -18,7 +18,7 @@ global restart geometry), the ranks agree on the budget rung (one
 segment bit counts are gathered, and every rank joins each image's
 stripes, realigns and stuffs its segments (``native.realign_segments``)
 and writes the file.  A stripe of any size is packed whole: the
-whole-image limits (``api.DEVICE_BLOCK_LIMIT``) send the single-device
+whole-image limits (``plan.DEVICE_BLOCK_LIMIT``) send the single-device
 ``Encoder`` to its chunked paths, and ``tpuenc``'s striped route does not
 read them either.  Its bit counts do not wrap: the per-block, per-row and
 per-run counts are int32 under the merge caps, which the overflow flag
@@ -32,7 +32,7 @@ same bytes) and ``encode_batch_sharded`` (any positive multiple of the
 batch axis, else ``ValueError``).  ``encode_batch`` takes every batch
 that ``Encoder.encode_batch`` takes: the striped route where it accepts
 the batch, else ``Encoder``'s route on this rank's device
-(:meth:`ShardedEncoder.batch_route`).
+(:meth:`ShardedEncoder._plan`).
 
 Optimized Huffman tables come from each image's histograms, counted per
 stripe and summed over the stripe group.
@@ -46,14 +46,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .. import api
 from ..api import Encoder, _validate_pixels
-from ..core.types import ColorType, init_components
+from ..core.types import ColorType
 from ..entropy import device_encode as de
 from ..entropy import native
 from ..entropy.chunked import BitAccumulator
 from ..entropy.huffopt import tables_from_histograms
-from ..kernels.pipeline import scan_layout
+from ..plan import Plan
 from .mesh import comm_device, stripe_counts
 from .stripes import (
     general_pack,
@@ -163,8 +162,8 @@ class ShardedEncoder(Encoder):
     ``device``, the compute device of this rank, explicit as for
     ``Encoder``.  Every rank calls the same methods with the same images
     and gets every file.  ``encode`` takes one image on the striped route
-    (:meth:`route`), ``encode_batch`` same-shape images on
-    :meth:`batch_route`'s route, named in ``last_encode_path``; the budget
+    (:meth:`route`), ``encode_batch`` same-shape images on the route of
+    :meth:`_plan`, named in ``last_encode_path``; the budget
     rung goes to ``last_budget``.  ``encode_image`` and ``encode_stream``
     are ``Encoder``'s, on this rank's device.  ``new_file`` and
     ``new_writer`` raise ``TypeError``, as ``tpuenc``'s do: the sinks have
@@ -206,19 +205,19 @@ class ShardedEncoder(Encoder):
             raise ValueError(why)
         return SHARDED_GENERAL
 
-    def batch_route(self, n_images: int, width: int, height: int,
-                    color_type: ColorType) -> str:
-        """The route of :meth:`encode_batch`, chosen up front:
-        :data:`SHARDED_GENERAL` where :meth:`route` takes the batch, else
-        ``Encoder.encode_batch``'s (``api.batch_route``: "device-batch" or
-        "device-batch-per-image") on this rank's device, for images that
-        are not MCU-aligned, a batch that is not a multiple of the batch
-        axis, or none."""
-        color_type = ColorType(color_type)
-        if self._refusal(n_images, width, height, color_type) is None:
-            return SHARDED_GENERAL
-        return api.batch_route(n_images, width, height, color_type,
-                               self._config())
+    def _plan(self, width: int, height: int, color_type: ColorType,
+              n: Optional[int] = None, stream: bool = False) -> Plan:
+        """``Encoder``'s plan of the call, chosen up front, with the route
+        :data:`SHARDED_GENERAL` for a batch of ``n`` images that
+        :meth:`route` takes.  Any other call keeps ``Encoder``'s route
+        ("device-batch" or "device-batch-per-image" for a batch) on this
+        rank's device: images that are not MCU-aligned, a batch that is
+        not a multiple of the batch axis, or none."""
+        plan = super()._plan(width, height, color_type, n, stream)
+        if n is not None and self._refusal(n, width, height,
+                                           plan.color_type) is None:
+            return plan._replace(route=SHARDED_GENERAL)
+        return plan
 
     def encode(self, data, width: int, height: int,
                color_type: ColorType) -> bytes:
@@ -227,19 +226,13 @@ class ShardedEncoder(Encoder):
         return self.encode_batch_sharded([data], width, height,
                                          color_type)[0]
 
-    def encode_batch(self, images, width: int, height: int,
-                     color_type: ColorType) -> List[bytes]:
-        """Same-shape images, each file ``Encoder.encode``'s, on
-        :meth:`batch_route`'s route: the striped route, or
-        ``Encoder.encode_batch`` on this rank's device (every rank encodes
-        every image).  A failure inside the route raises."""
-        color_type = ColorType(color_type)
-        pixels = [_validate_pixels(d, width, height, color_type)
-                  for d in images]
-        if self.batch_route(len(pixels), width, height,
-                            color_type) == SHARDED_GENERAL:
-            return self._encode_striped(pixels, width, height, color_type)
-        return super().encode_batch(pixels, width, height, color_type)
+    def _encode_batch(self, pixel_arrays, plan: Plan) -> List[bytes]:
+        """``encode_batch``'s files on ``plan``'s route: the striped route,
+        or ``Encoder``'s on this rank's device (every rank encodes every
+        image).  A failure inside the route raises."""
+        if plan.route == SHARDED_GENERAL:
+            return self._encode_striped(pixel_arrays, plan)
+        return super()._encode_batch(pixel_arrays, plan)
 
     def encode_batch_sharded(self, images, width: int, height: int,
                              color_type: ColorType) -> List[bytes]:
@@ -250,7 +243,8 @@ class ShardedEncoder(Encoder):
         pixels = [_validate_pixels(d, width, height, color_type)
                   for d in images]
         self.route(len(pixels), width, height, color_type)
-        return self._encode_striped(pixels, width, height, color_type)
+        return self._encode_striped(
+            pixels, self._plan(width, height, color_type, n=len(pixels)))
 
     def encode_batch_packed_general(self, images, width: int, height: int,
                                     color_type: ColorType
@@ -285,14 +279,10 @@ class ShardedEncoder(Encoder):
         return self.encode_batch_packed_general(images, width, height,
                                                 color_type)
 
-    def _file(self, scans, width, height, color_type, config, huffman):
-        jct = color_type.jpeg_color_type
-        components = init_components(jct, config.sampling_factor)
-        q_tables, _, _ = self._default_tables(config)
-        return self._assemble_scans(self._leading_segments(config, jct),
-                                    [[scan] for scan in scans], width, height,
-                                    color_type, config, components, q_tables,
-                                    huffman)
+    def _file(self, scans, plan: Plan, huffman):
+        q_tables, _, _ = self._default_tables(plan.config)
+        return self._assemble_scans(plan, self._head(plan, q_tables, huffman),
+                                    [[scan] for scan in scans])
 
     def _huffman(self, config, hist):
         """One image's Huffman tables: the K.2 tables of its reduced
@@ -305,14 +295,14 @@ class ShardedEncoder(Encoder):
                 huffman[t] = list(pair)
         return huffman
 
-    def _encode_striped(self, pixels, width: int, height: int,
-                        color_type: ColorType) -> List[bytes]:
+    def _encode_striped(self, pixels, plan: Plan) -> List[bytes]:
         """The striped route (``tpuenc``'s ``encode_batch_packed_general``,
         encode.py:91, for k images a batch coordinate) of the validated
-        ``pixels``: image k * b + i on batch coordinate b, every scan of it
-        packed by the stripes on their devices, the bits gathered once and
-        each file assembled on every rank."""
-        config = self._config()
+        ``pixels`` on ``plan``: image k * b + i on batch coordinate b,
+        every scan of it packed by the stripes on their devices, the bits
+        gathered once and each file assembled on every rank."""
+        width, height = plan.width, plan.height
+        color_type, config = plan.color_type, plan.config
         mesh = self._mesh
         n_b, n_s = stripe_counts(mesh)
         per = len(pixels) // n_b
@@ -325,14 +315,13 @@ class ShardedEncoder(Encoder):
                   [de.huffman_params(self._huffman(config, h), self.device)
                    for h in hists])
 
-        layout = scan_layout(width, height, color_type, config)
-        plan = de.build_scan_plan(layout, layout["components"], config)
         key = (SHARDED_GENERAL, len(pixels), width, height, color_type,
                config, n_b, n_s, self.device.type)
         budget = de._ladder(key)[0]
         while True:
             scans = [s for i, (dc, ac) in enumerate(tables)
-                     for s in general_pack(stripe, i, plan, dc, ac, budget)]
+                     for s in general_pack(stripe, i, plan.scans, dc, ac,
+                                           budget)]
             # One read of every scan's overflow flag and bits.
             meta = torch.cat([torch.cat([s.overflow for s in scans]).max()
                               .view(1).to(torch.int64),
@@ -357,13 +346,13 @@ class ShardedEncoder(Encoder):
             sent.append(torch.from_numpy(hists))
         got = gather(sent, mesh)
 
-        counts = _block_counts(layout)
+        counts = _block_counts(plan.layout)
         files = []
         for ranks in mesh.mesh.tolist():  # the batch coordinates in order
             for i in range(per):
                 payloads = []
-                for k, (stream_idx, spec, _) in enumerate(plan):
-                    j = 3 * (i * len(plan) + k)
+                for k, (stream_idx, spec, _) in enumerate(plan.scans):
+                    j = 3 * (i * len(plan.scans) + k)
                     parts = [(got[r][j], *got[r][j + 1].tolist(),
                               got[r][j + 2]) for r in ranks]
                     payloads.append(join_scan(parts, counts[stream_idx],
@@ -371,8 +360,7 @@ class ShardedEncoder(Encoder):
                 huffman = self._huffman(
                     config, None if hists is None else
                     got[ranks[0]][-1].reshape(hists.shape)[i])
-                files.append(self._file(payloads, width, height, color_type,
-                                        config, huffman))
+                files.append(self._file(payloads, plan, huffman))
         return files
 
 

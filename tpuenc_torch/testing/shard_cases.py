@@ -26,9 +26,9 @@ string argument names a ``SamplingFactor``; ``w``, ``h``; ``color_type``
   gathered (``shard.encode.gather``), and the reduced histograms;
 * ``"pack"``: this rank's general pack of its image at ``budget``: each
   scan's bits, block lengths and words;
-* ``"route"``: for ``n`` images, ``ShardedEncoder.batch_route``,
-  ``ShardedEncoder.route`` or the ``ValueError`` it raises, and for
-  ``n`` 0 ``encode_batch([])``;
+* ``"route"``: for ``n`` images, the route of ``encode_batch``'s plan
+  (``ShardedEncoder._plan``), ``ShardedEncoder.route`` or the
+  ``ValueError`` it raises, and for ``n`` 0 ``encode_batch([])``;
 * ``"dryrun"``: ``shard.dryrun.dryrun_multichip``.
 """
 
@@ -39,8 +39,6 @@ import torch
 
 from ..api import ImageBuffer
 from ..core.types import ColorType, JpegColorType, SamplingFactor
-from ..entropy import device_encode as de
-from ..kernels.pipeline import scan_layout
 from ..shard.dryrun import dryrun_multichip
 from ..shard.encode import ShardedEncoder, gather
 from ..shard.mesh import make_mesh
@@ -112,7 +110,7 @@ def _run(case, mesh, device):
     apply_settings(enc, case["settings"])
     if kind == "route":
         n = case["n"]
-        return (enc.batch_route(n, w, h, ct),
+        return (enc._plan(w, h, ct, n=n).route,
                 _refused(lambda: enc.route(n, w, h, ct)),
                 enc.encode_batch([], w, h, ct) if n == 0 else None)
     images = case_images(case)
@@ -147,10 +145,8 @@ def _run(case, mesh, device):
     if kind == "step":
         return gather(stripe.streams, mesh), hists, stripe.n_local
     if kind == "pack":
-        layout = scan_layout(w, h, ct, config)
-        plan = de.build_scan_plan(layout, layout["components"], config)
-        scans = general_pack(stripe, 0, plan, params.dc, params.ac,
-                             case["budget"])
+        scans = general_pack(stripe, 0, enc._plan(w, h, ct).scans, params.dc,
+                             params.ac, case["budget"])
         return [(int(s.bits), s.lens.cpu().numpy(),
                  s.stream[:(int(s.bits) + 31) >> 5].cpu().numpy())
                 for s in scans]
