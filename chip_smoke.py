@@ -1910,7 +1910,9 @@ def phase_config5(dev, flagship_bytes, progressive_bytes, keep):
     print(f"  (f) CUDA-tensor rows: == (c)'s bytes; H2D copies over one "
           f"encode: {h2d_f[0]} ({h2d_f[1]:.3f} ms), beside (c)'s host array "
           f"{h2d_c[0]} ({h2d_c[1]:.3f} ms)")
-    if h2d_f[0] != 0:
+    # The chunk finish uploads each chunk's small table of segment pieces;
+    # a copy of the pixels would add one copy more a chunk.
+    if h2d_f[0] > CONFIG5_C_ROWS * CONFIG5_CHUNKS // CONFIG5:
         raise AssertionError("(f) copied pixels to the card")
     del dimg
 

@@ -38,6 +38,7 @@ from tpuenc_torch.entropy.device_encode import (  # noqa: E402
 )
 from tpuenc_torch.entropy.device_pack import ScanSpec  # noqa: E402
 from tpuenc_torch.jfif import segments  # noqa: E402
+from tpuenc_torch.testing import host_stuffer  # noqa: E402
 
 W, H = 70, 150  # many MCU rows; a partial trailing MCU in both axes
 
@@ -73,7 +74,8 @@ def _port(quality, setup):
 
 
 # ---------------------------------------------------------------------------
-# StreamingStuffer and the native bulk flush.
+# StreamingStuffer (each chunk finished by the device passes, here on CPU
+# tensors), the host reference it replaced, and the native bulk flush.
 # ---------------------------------------------------------------------------
 
 def _chunks(rng, n_chunks, max_blocks, ff_heavy):
@@ -82,31 +84,150 @@ def _chunks(rng, n_chunks, max_blocks, ff_heavy):
     out = []
     for _ in range(n_chunks):
         lens = rng.integers(0, 90, int(rng.integers(1, max_blocks)))
-        nbits = int(lens.sum())
-        words = rng.integers(0, 2**32, (nbits + 31) // 32, dtype=np.uint64)
-        if ff_heavy:
-            words[rng.random(words.shape[0]) < 0.9] = 0xFFFFFFFF
-        out.append((words.astype(np.uint32), nbits, lens))
+        out.append(_chunk(rng, lens, ff_heavy=ff_heavy))
     return out
 
 
-@pytest.mark.parametrize("seg,n_chunks,max_blocks,ff_heavy", [
+def _chunk(rng, lens, junk_words=0, ff_heavy=False):
+    """One chunk of blocks of ``lens`` bits, its words random (past the
+    used ones, ``junk_words`` more, as a pack's capacity leaves them)."""
+    lens = np.asarray(lens, np.int64)
+    nbits = int(lens.sum())
+    words = rng.integers(0, 2**32, (nbits + 31) // 32 + junk_words,
+                         dtype=np.uint64)
+    if ff_heavy:
+        words[rng.random(words.shape[0]) < 0.9] = 0xFFFFFFFF
+    return words.astype(np.uint32), nbits, lens
+
+
+def _feed(chunks, seg, total, carries=None):
+    """Each chunk through the port's stuffer and tpuenc's, piece against
+    piece; ``carries``: the bits the port's leaves on the device after
+    each chunk."""
+    mine = chunked.StreamingStuffer(seg, total)
+    ref = jchunked.StreamingStuffer(seg, total)
+    for i, (words, nbits, lens) in enumerate(chunks):
+        got = mine.add_chunk(torch.from_numpy(words.view(np.int32)), nbits,
+                             lens.astype(np.int16))
+        assert bytes(got) == ref.add_chunk(words, nbits, lens), i
+        if carries is not None:
+            assert mine.carry_bits == carries[i], i
+    assert mine.finish() == ref.finish() == b""
+
+
+STUFFER_CASES = [
     (0, 12, 40, False),        # one segment: mid-segment flushes only
     (7, 12, 40, False),        # segments spanning chunks
     (3, 20, 9, True),          # 0xFF-heavy, several segments per chunk
     (0, 3, 40000, True),       # flushes of >= 64 KiB: the native stuffer
     (5000, 4, 30000, False),   # native flushes inside long segments
-])
+]
+
+
+@pytest.mark.parametrize("seg,n_chunks,max_blocks,ff_heavy", STUFFER_CASES)
 def test_streaming_stuffer_matches_tpuenc(seg, n_chunks, max_blocks, ff_heavy):
     rng = np.random.default_rng(seg * 31 + n_chunks)
     chunks = _chunks(rng, n_chunks, max_blocks, ff_heavy)
     total = sum(len(lens) for _, _, lens in chunks)
-    mine = chunked.StreamingStuffer(seg or total, total)
+    _feed(chunks, seg or total, total)
+
+
+@pytest.mark.parametrize("seg,n_chunks,max_blocks,ff_heavy", STUFFER_CASES)
+def test_host_stuffer_matches_tpuenc(seg, n_chunks, max_blocks, ff_heavy):
+    """The host finish the chunked routes ran before, kept as a
+    reference."""
+    rng = np.random.default_rng(seg * 31 + n_chunks)
+    chunks = _chunks(rng, n_chunks, max_blocks, ff_heavy)
+    total = sum(len(lens) for _, _, lens in chunks)
+    mine = host_stuffer.HostStreamingStuffer(seg or total, total)
     ref = jchunked.StreamingStuffer(seg or total, total)
     for words, nbits, lens in chunks:
         assert mine.add_chunk(words, nbits, lens) == \
             ref.add_chunk(words, nbits, lens)
     assert mine.finish() == ref.finish() == b""
+
+
+@pytest.mark.parametrize("carry", range(1, 8))
+def test_chunk_finish_carries_each_bit_offset(carry):
+    """A segment left open with ``carry`` bits past its last whole byte:
+    those bits stay on the device and lead the next chunk, where the
+    segment closes mid-chunk and the next opens."""
+    rng = np.random.default_rng(carry)
+    lens = rng.integers(1, 60, 9)
+    lens[-1] += (carry - lens.sum()) % 8
+    chunks = [_chunk(rng, lens), _chunk(rng, rng.integers(1, 60, 10)),
+              _chunk(rng, rng.integers(1, 60, 5))]
+    _feed(chunks, 12, 24, carries=[carry, int(chunks[1][2][3:].sum() & 7), 0])
+
+
+def _bits_to(rng, n, mod8, low=1, high=60):
+    """``n`` block lengths whose sum is ``mod8`` modulo 8."""
+    lens = rng.integers(low, high, n)
+    lens[-1] += (mod8 - lens.sum()) % 8
+    return lens
+
+
+CHUNK_CASES = {
+    # a chunk of 0 bits that closes the segment its carry of 3 bits opened
+    # (one padded byte and its marker) and opens the next
+    "zero_bits_after_a_carry": (6, lambda r: [
+        _chunk(r, _bits_to(r, 5, 3)), _chunk(r, np.zeros(4, np.int64)),
+        _chunk(r, r.integers(1, 60, 7))]),
+    # a chunk of 0 bits with nothing carried: a segment of 0 bits, its
+    # marker alone
+    "zero_bits_no_carry": (4, lambda r: [
+        _chunk(r, r.integers(1, 60, 4)), _chunk(r, np.zeros(4, np.int64)),
+        _chunk(r, r.integers(1, 60, 4))]),
+    # every chunk ends on a segment's last bit, one of them on a byte
+    # boundary (no padding)
+    "closes_on_the_last_bit": (5, lambda r: [
+        _chunk(r, _bits_to(r, 5, 0)), _chunk(r, r.integers(1, 60, 10)),
+        _chunk(r, r.integers(1, 60, 5))]),
+    # 26 segments of one block: RST0-7 wrap three times, across chunks
+    "rst_wrap": (1, lambda r: [
+        _chunk(r, r.integers(1, 60, 7)), _chunk(r, r.integers(1, 60, 13)),
+        _chunk(r, r.integers(1, 60, 6))]),
+    # words past each chunk's bits, 0xFF-heavy, as a masked chunk's
+    # capacity leaves them
+    "words_past_the_bits": (9, lambda r: [
+        _chunk(r, r.integers(0, 90, 20), junk_words=7, ff_heavy=True)
+        for _ in range(4)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CHUNK_CASES))
+def test_chunk_finish_edges_match_tpuenc(case):
+    seg, make = CHUNK_CASES[case]
+    chunks = make(np.random.default_rng(len(case)))
+    _feed(chunks, seg, sum(len(lens) for _, _, lens in chunks))
+
+
+def test_multipass_masked_last_chunk_matches_tpuenc_stuffer(monkeypatch):
+    """The multipass route's chunks as its packer hands them to the
+    stuffer, the last masked to the component's blocks: the port's chunk
+    finish gives tpuenc's stuffer's pieces on the same chunks."""
+    fed = []
+    real = chunked.StreamingStuffer.add_chunk
+
+    def recording(self, words, nbits, lens):
+        fed.append((self, words.numpy().view(np.uint32).copy(), nbits,
+                    lens.copy()))
+        return real(self, words, nbits, lens)
+
+    monkeypatch.setattr(chunked.StreamingStuffer, "add_chunk", recording)
+    q, ct, ch, setup, rows, _ = MULTIPASS["progressive_restart"]
+    enc = _port(q, setup)
+    _, huffman, params = enc._default_tables(enc._config())
+    got = encode_multipass_chunked(
+        _pixels(ch, 7), enc._plan(W, H, tt.ColorType[ct]), huffman, params,
+        chunk_mcu_rows=rows, pack_chunk=96)
+    assert any(st.total % 96 for st, *_ in fed)
+    refs, out = {}, []
+    for st, words, nbits, lens in fed:
+        ref = refs.setdefault(st, jchunked.StreamingStuffer(st.seg, st.total))
+        out.append(ref.add_chunk(words, nbits, lens))
+    pieces = [bytes(p) for scan in got for p in scan]
+    assert [p for p in out if p] == pieces
 
 
 @pytest.mark.parametrize("bit_off", [0, 3, 13, 8 * 70001 + 5])
@@ -118,7 +239,7 @@ def test_stuff_stream_matches_extract(bit_off):
     for i in range(0, len(buf), 3):
         buf[i] = 0xFF
     nbytes = 200_000
-    want = chunked._extract_bytes(buf, bit_off, nbytes).replace(
+    want = host_stuffer.extract_bytes(buf, bit_off, nbytes).replace(
         b"\xff", b"\xff\x00")
     assert tnative.stuff_stream(buf, bit_off, nbytes) == want
 

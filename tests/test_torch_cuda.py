@@ -941,6 +941,35 @@ def test_chunked_encode_on_cuda_matches_cpu(dev, restart, opt, monkeypatch):
     assert b"".join(pieces) == want
 
 
+def test_chunked_finish_on_the_card(dev, monkeypatch):
+    """A YCCK 4:2:0 encode with a restart interval on "device-chunked"
+    (the block limit forced down, three chunks of 64 MCU rows): each chunk
+    finished on the card, the file the CPU path's bytes, again from the
+    encoder's reused page-locked pieces, and ``device_finished_chunks``
+    its chunk count."""
+    from tpuenc_torch import ColorType, tracing
+    from tpuenc_torch import plan as planning
+
+    rng = np.random.default_rng(23)
+    w, h = 264, 2100  # 132 MCU rows of 16 pixels: chunks of 64, 64, 4
+    px = rng.integers(0, 256, (h, w, 4), np.uint8)
+    monkeypatch.setattr(planning, "DEVICE_BLOCK_LIMIT", 1000)
+    want = _chunked_encoder("cpu", restart=7).encode(
+        px, w, h, ColorType.CMYK_AS_YCCK)
+    enc = _chunked_encoder(dev, restart=7)
+    tracing.enable()
+    try:
+        got = enc.encode(px, w, h, ColorType.CMYK_AS_YCCK)
+        (req,) = tracing.requests()
+    finally:
+        tracing.disable()
+    assert enc.last_encode_path == "device-chunked"
+    assert got == want
+    assert req.counters["device_finished_chunks"] == 3
+    assert req.counters["restart_segments"] == -(-(17 * 132) // 7)
+    assert enc.encode(px, w, h, ColorType.CMYK_AS_YCCK) == want
+
+
 def test_cuda_row_source(dev):
     """Row slabs that are already CUDA tensors give the host array's
     bytes; a slab on another device or short of rows raises."""

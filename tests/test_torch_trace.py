@@ -32,7 +32,7 @@ RGB = tt.ColorType.RGB
 # Every span name the port opens, documented in tracing's docstring.
 STAGES = {"encode", "plan", "upload", "transform", "histograms", "tables",
           "pack", "sync.meta", "sync.hist", "sync.counts", "sync.bytes",
-          "sync.words", "sync.rows", "finish.device",
+          "sync.rows", "finish.device",
           "finish.host", "finish.stream", "assemble"}
 
 
@@ -87,16 +87,17 @@ ROUTES = [
      {"plan", "upload", "transform", "pack", "sync.meta", "finish.device",
       "sync.counts", "sync.bytes", "assemble"}),
     ("chunked", {}, _plain, "encode", "device-chunked",
-     {"plan", "transform", "upload", "pack", "sync.meta", "sync.words",
-      "finish.stream", "assemble"}),
+     {"plan", "transform", "upload", "pack", "sync.meta", "finish.stream",
+      "sync.counts", "sync.bytes", "assemble"}),
     ("chunked-multipass", {"optimized_huffman_tables": True,
                            "progressive": True}, _plain,
      "encode", "device-chunked-multipass",
      {"plan", "transform", "upload", "histograms", "sync.hist", "tables",
-      "pack", "sync.meta", "sync.words", "finish.stream", "assemble"}),
+      "pack", "sync.meta", "finish.stream", "sync.counts", "sync.bytes",
+      "assemble"}),
     ("stream", {}, _stream, "encode_stream", "device-chunked-stream",
-     {"plan", "transform", "upload", "pack", "sync.meta", "sync.words",
-      "finish.stream"}),
+     {"plan", "transform", "upload", "pack", "sync.meta", "finish.stream",
+      "sync.counts", "sync.bytes"}),
 ]
 IDS = [r[0] for r in ROUTES]
 
@@ -173,9 +174,11 @@ def test_one_request_per_call_spans_nested(request, route, settings, call,
     blocking = [s for s in req.spans
                 if s.name.startswith("sync.") or s.name == "upload"]
     assert req.counters["syncs"] == len(blocking)
-    # a pack kept for each chunk, or the one of a whole-image route
-    kept = (sum(s.name == "sync.words" for s in req.spans)
+    # a pack kept for each chunk, each chunk finished on the device, or
+    # the one pack of a whole-image route
+    kept = (req.counters["device_finished_chunks"]
             if "chunked" in path else 1)
+    assert kept == sum(s.name == "sync.counts" for s in req.spans)
     assert req.counters.get("ladder_retries", 0) == len(packs) - kept
 
 

@@ -40,7 +40,7 @@ from .core.types import (
     SamplingFactor,
 )
 from .entropy import device_encode as de
-from .entropy.chunked import iter_encode_interleaved_chunked
+from .entropy.chunked import PinnedPieces, iter_encode_interleaved_chunked
 from .entropy.chunked_multipass import encode_multipass_chunked
 from .entropy.device import scan_histograms
 from .entropy.huffopt import (
@@ -154,11 +154,12 @@ class Encoder:
     optimized-table encodes (optimized tables make the scans sequential)
     take the split path as ever ("device-v2").
 
-    The whole-image routes, ``encode_batch``'s per-image route and its
-    single program finish their scans on the encode device
+    Every route finishes its scans on the encode device
     (``entropy.device_stuff``: byte alignment, 1-padding, 0xFF stuffing
-    and RST markers) and copy back only the finished bytes.  Only the
-    chunked paths finish on the host, as in ``tpuenc``.
+    and RST markers) and copies back only the finished bytes: the
+    whole-image routes, ``encode_batch``'s per-image route and its single
+    program in one finish, the chunked paths chunk by chunk (``tpuenc``
+    finishes those on the host).
 
     Each call makes one :class:`plan.Plan` (:meth:`_plan`), which names
     its route and holds its scan plan, and hands it down.
@@ -185,8 +186,10 @@ class Encoder:
         self._quant: dict = {}
         self._default_huffman = None
         # The page-locked buffer on a CUDA device for the device finish's
-        # bytes, made at its first use (entropy.device_encode.PinnedBuffer).
+        # bytes, made at its first use (entropy.device_encode.PinnedBuffer),
+        # and the chunked routes' (entropy.chunked.PinnedPieces).
         self._pinned = None
+        self._pieces = None
         # Which path produced the last output: encode()'s "device-v2" (the
         # counterpart of tpuenc's v2 device packer), "device-v2-fused"
         # (with K8), "device-chunked" or "device-chunked-multipass" (past
@@ -419,9 +422,10 @@ class Encoder:
 
         self.last_encode_path = plan.route
         ladder = list(de.BUDGET_LADDER)
-        yield from iter_encode_interleaved_chunked(
-            pixels if source is None else source, plan, params,
-            chunk_mcu_rows, ladder)
+        for piece in iter_encode_interleaved_chunked(
+                pixels if source is None else source, plan, params,
+                chunk_mcu_rows, ladder):
+            yield bytes(piece)
         self.last_budget = ladder[0]
         yield segments.marker(markers.EOI)
 
@@ -527,6 +531,16 @@ class Encoder:
             self._pinned = de.PinnedBuffer()
         return self._pinned
 
+    def _pinned_pieces(self):
+        """The encoder's page-locked memory for a chunked call's pieces on
+        a CUDA device, emptied for the call, else None."""
+        if self.device.type != "cuda":
+            return None
+        if self._pieces is None:
+            self._pieces = PinnedPieces()
+        self._pieces.reset()
+        return self._pieces
+
     def _head(self, plan: Plan, q_tables, huffman) -> bytes:
         """Everything before the first SOS: SOI, JFIF APP0, (Adobe APP14),
         the user APP segments (reference encoder.rs:536-554), then the
@@ -589,18 +603,20 @@ class Encoder:
         which goes to ``last_encode_path`` with the budget rung to
         ``last_budget``: each the list of bytes-like parts that joined make
         it, as the route's finish left them (one view of the device
-        finish's output, valid until the encoder's next encode, or the
-        streaming stuffer's pieces).  ``huffman`` is replaced in place by
+        finish's output, or the streaming stuffer's pieces, views valid
+        until the encoder's next encode).  ``huffman`` is replaced in place by
         the optimized tables when the config asks for them."""
         config = plan.config
         if plan.route in (CHUNKED, CHUNKED_MULTIPASS):
             ladder = list(de.BUDGET_LADDER)
+            pinned = self._pinned_pieces()
             if plan.route == CHUNKED:
                 scans = [list(iter_encode_interleaved_chunked(
-                    pixels, plan, params, ladder=ladder))]
+                    pixels, plan, params, ladder=ladder, pinned=pinned))]
             else:
                 scans = encode_multipass_chunked(pixels, plan, huffman,
-                                                 params, ladder=ladder)
+                                                 params, ladder=ladder,
+                                                 pinned=pinned)
             self.last_encode_path, self.last_budget = plan.route, ladder[0]
             return scans
 

@@ -4,28 +4,33 @@ Counterpart of ``tpuenc/entropy/chunked.py``.  The image goes through the
 device in chunks of ``chunk_mcu_rows`` MCU rows: each chunk's pixel rows
 are read (from the whole array or from a pull source) and uploaded, turned
 into its MCU stream (``kernels.pipeline.fn_cm`` at the chunk's height,
-which pads the edges itself), and packed (P1-P4, ``pallas_pack``); the
-host appends the chunk's raw bits to a :class:`StreamingStuffer`, which
-hands back the scan bytes that became final.  Device memory, host memory
-and the transfers are all O(chunk), so a 16K x 16K 4-component image
-encodes past the whole-image path's limits.
+which pads the edges itself), packed (P1-P4, ``pallas_pack``) and finished
+on the device by a :class:`StreamingStuffer` (realigned, 1-padded,
+0xFF-stuffed, RST markers inline: ``device_stuff.stuff_chunk``), and only
+the scan bytes that became final come back to the host.  Device memory,
+host memory and the transfers are all O(chunk), so a 16K x 16K
+4-component image encodes past the whole-image path's limits.  (``tpuenc``
+finishes its chunks on the host; that finish is the tests' reference,
+``testing.host_stuffer``.)
 
 State across chunks is small and explicit: the DC predictor chain (the
 previous chunk's last ``pat`` DC values, taken from the input
 coefficients, feed ``dc_diffs_from_dc`` as ``prev_tail``) and the chunk's
 first block index in the scan (``global_offset``), which fixes the restart
-segments.  A restart segment may span chunks; the stuffer carries it.
+segments.  A restart segment may span chunks; the stuffer carries the last
+partial byte of its bits from one chunk to the next, on the device.
 
 :func:`pack_chunks` runs the chunks with a lookahead of one: chunk i+1 is
 queued on the device before chunk i's results are read, so the host's
-stuffing of chunk i overlaps the device work of chunk i+1.  On one CUDA
-stream a plain ``.cpu()`` of chunk i would wait for chunk i+1's work as
-well, so the reads go through :class:`HostCopy`: a side stream behind an
-event recorded after chunk i's work, into page-locked memory.
+reads and copies of chunk i overlap the device work of chunk i+1.  On one
+CUDA stream a plain ``.cpu()`` of chunk i would wait for chunk i+1's work
+as well, so chunk i's reads and its finish go through :class:`HostCopy`: a
+side stream behind an event recorded after chunk i's work.
 """
 
 from __future__ import annotations
 
+import contextlib
 import sys
 
 import numpy as np
@@ -35,8 +40,8 @@ from .. import tracing
 from ..core import errors
 from ..core.types import ColorType
 from ..kernels.pipeline import fn_cm
-from . import native
 from .device_encode import BUDGET_LADDER, EncodeParams, PinnedBuffer
+from .device_stuff import stuff_chunk
 from .pallas_pack import dc_diffs_from_dc, device_scan_pack
 
 
@@ -89,120 +94,92 @@ class BitAccumulator:
         self.bits = append_bits(self.buf, self.bits, data, int(nbits))
 
 
-def _extract_bytes(buf: bytearray, rel_bit: int, nbytes: int) -> bytes:
-    """Whole output bytes [rel_bit, rel_bit + 8*nbytes) of the raw bit
-    buffer, MSB-first (vectorized shift)."""
-    if nbytes <= 0:
-        return b""
-    b0 = rel_bit >> 3
-    sh = rel_bit & 7
-    a = np.frombuffer(bytes(memoryview(buf)[b0:b0 + nbytes + 1]), np.uint8)
-    if sh == 0:
-        return a[:nbytes].tobytes()
-    if a.shape[0] < nbytes + 1:
-        a = np.concatenate([a, np.zeros(nbytes + 1 - a.shape[0], np.uint8)])
-    w = (a.astype(np.uint16) << 8)
-    out = ((w[:-1] | a[1:]) >> (8 - sh)).astype(np.uint8)
-    return out.tobytes()
-
-
 class StreamingStuffer:
-    """Incrementally turn the raw device bitstream into the final stuffed,
-    RST-marker-interleaved scan bytes with O(pending-chunk) memory.
+    """Turn a scan's packed chunks into its final bytes (stuffed, RST
+    markers inline) one chunk at a time, on the chunks' device, with
+    O(chunk) memory.
 
-    Segments start byte-aligned in the output (1-padded tails), so any
-    whole output byte of the current segment is final as soon as its bits
-    exist: it is 0xFF-stuffed (0xFF -> 0xFF 0x00) and flushed at once,
-    the reference's streaming bit writer (writer.rs:138-202) at chunk
-    granularity.
-    """
+    Segments start byte-aligned in the output (1-padded tails), so every
+    whole byte of the open segment is final as soon as its bits exist:
+    each chunk's finish (``device_stuff.stuff_chunk``) gives them all,
+    closes the segments that end in the chunk, and leaves at most 7 bits
+    of the open one on the device for the next chunk, the reference's
+    streaming bit writer (writer.rs:138-202) at chunk granularity.  The
+    host walks the segments over the blocks' bit counts and copies back
+    only the finished bytes: into ``pinned`` (a :class:`PinnedPieces`),
+    where given, else into a new host tensor (on the CPU, none: the
+    pieces view the finish's output)."""
 
-    def __init__(self, seg_blocks: int, total_blocks: int):
+    def __init__(self, seg_blocks: int, total_blocks: int, pinned=None):
         self.seg = max(int(seg_blocks), 1)
         self.total = int(total_blocks)
         self.n_seg = -(-self.total // self.seg) if self.total else 1
-        self.acc = BitAccumulator()
-        self.base_bit = 0       # absolute bit index of acc.buf[0] bit 0
-        self.read_bit = 0       # absolute next-unflushed bit
+        self.pinned = pinned
         self.blocks_done = 0
-        self.seg_idx = 0
-        self.seg_bits = 0       # bits fed into the current segment so far
-        self.seg_flushed = 0    # whole bytes of the current segment flushed
+        self.seg_idx = 0        # the open segment
+        self.carry = None       # its unfinished bits, int32 (1,) on the device
+        self.carry_bits = 0
 
-    def _seg_len(self, idx: int) -> int:
-        if idx == self.n_seg - 1:
-            return self.total - idx * self.seg
-        return self.seg
-
-    def add_chunk(self, words: np.ndarray, nbits: int,
-                  lens: np.ndarray) -> bytes:
-        """Feed one device chunk (packed words + per-block bit lengths);
-        returns the output bytes that became final."""
+    def add_chunk(self, words: torch.Tensor, nbits: int,
+                  lens: np.ndarray) -> memoryview:
+        """Finish one chunk (its packed words on the device, their bit
+        count, its blocks' bit lengths on the host) on the words' device,
+        in the current stream; returns a read-only view of the bytes that
+        became final, valid while ``pinned`` is not reset."""
         with tracing.span("finish.stream"):
-            self.acc.append_words(words, nbits)
-            out = bytearray()
-            lens = np.asarray(lens, dtype=np.int64)
-            pos = 0
-            n = lens.shape[0]
-            while pos < n:
-                room = self._seg_len(self.seg_idx) - (
-                    self.blocks_done - self.seg_idx * self.seg
-                )
-                take = min(room, n - pos)
-                self.seg_bits += int(lens[pos:pos + take].sum())
-                self.blocks_done += take
-                pos += take
-                if take == room:
-                    self._finish_segment(out)
-            # Mid-segment: flush the whole bytes that are already final.  Runs
-            # of at least 64 KiB go through the native chunk-parallel stuffer;
-            # shorter ones through the numpy extract and bytes.replace.  Both
-            # give the same bytes.
-            avail = (self.seg_bits - 8 * self.seg_flushed) >> 3
-            if avail > 0:
-                rel = self.read_bit - self.base_bit
-                if avail >= (1 << 16):
-                    stuffed = native.stuff_stream(self.acc.buf, rel, avail)
-                else:
-                    stuffed = _extract_bytes(self.acc.buf, rel, avail).replace(
-                        b"\xff", b"\xff\x00")
-                out += stuffed
-                self.read_bit += 8 * avail
-                self.seg_flushed += avail
-            self._compact()
-            return bytes(out)
+            piece_bits, tail_open, marker_m = self._pieces(np.asarray(lens),
+                                                           int(nbits))
+            if self.carry is None:
+                self.carry = words.new_zeros(1)
+            out, total, self.carry, self.carry_bits = stuff_chunk(
+                words, self.carry, self.carry_bits, piece_bits, tail_open,
+                marker_m)
+            tracing.count("device_finished_chunks")
+        with tracing.span("sync.counts"):
+            n = int(total)
+        if n == 0:
+            return memoryview(b"")
+        with tracing.span("sync.bytes"):
+            if self.pinned is None:
+                data = out[:n].cpu().numpy()
+            else:
+                host = self.pinned.take(n)
+                host.copy_(out[:n])
+                data = host.numpy()
+        return memoryview(data).toreadonly()
 
-    def _finish_segment(self, out: bytearray) -> None:
-        nbits = self.seg_bits - 8 * self.seg_flushed
-        if nbits > 0:
-            whole = nbits >> 3
-            raw = _extract_bytes(
-                self.acc.buf, self.read_bit - self.base_bit, whole
-            )
-            out += raw.replace(b"\xff", b"\xff\x00")
-            rem = nbits & 7
-            if rem:
-                rel = self.read_bit - self.base_bit + 8 * whole
-                b0 = rel >> 3
-                window = int.from_bytes(self.acc.buf[b0:b0 + 2], "big") \
-                    if b0 + 1 < len(self.acc.buf) else \
-                    int.from_bytes(self.acc.buf[b0:b0 + 1] + b"\x00", "big")
-                sh = rel & 7
-                bits = (window >> (16 - sh - rem)) & ((1 << rem) - 1)
-                pad = 8 - rem
-                byte = (bits << pad) | ((1 << pad) - 1)
-                out.append(byte)
-                if byte == 0xFF:
-                    out.append(0x00)
-            self.read_bit += nbits
-        self.seg_idx += 1
-        self.seg_bits = 0
-        self.seg_flushed = 0
-        if self.seg_idx < self.n_seg:
-            out += bytes((0xFF, 0xD0 + ((self.seg_idx - 1) & 7)))
+    def _pieces(self, lens: np.ndarray, nbits: int):
+        """The chunk's pieces of segments, in order: each one's bits,
+        whether the last one's segment goes on past the chunk, and the RST
+        index written after each (-1 for none: the scan's last segment, or
+        a piece left open).  Moves the walk past the chunk."""
+        b0 = self.blocks_done
+        b1 = b0 + lens.shape[0]
+        if b1 > self.total:
+            raise ValueError(f"fed {b1} blocks, expected {self.total}")
+        # The segment ends in (b0, b1]: multiples of seg, and the scan's end.
+        ends = np.arange((b0 // self.seg + 1) * self.seg, b1 + 1, self.seg)
+        if b1 == self.total > b0 and (not ends.size or ends[-1] != b1):
+            ends = np.append(ends, b1)
+        n_close = ends.size
+        P = n_close + int(not n_close or ends[-1] < b1)
+        if lens.shape[0]:
+            starts = np.concatenate([[b0], ends[:P - 1]]) - b0
+            bits = np.add.reduceat(lens, starts, dtype=np.int64)
+        else:
+            bits = np.zeros(1, np.int64)
+        if int(bits.sum()) != nbits:
+            raise ValueError(f"blocks of {int(bits.sum())} bits in a chunk "
+                             f"of {nbits}")
+        idx = self.seg_idx + np.arange(P)
+        marker_m = np.where((idx < self.seg_idx + n_close)
+                            & (idx < self.n_seg - 1), idx % 8, -1)
+        self.blocks_done = b1
+        self.seg_idx += n_close
+        return bits, P > n_close, marker_m
 
     def finish(self) -> bytes:
-        """Check that all blocks were fed; every byte was already flushed
+        """Check that all blocks were fed; every byte was already given
         by :meth:`add_chunk` (the last segment closes with its last
         block)."""
         with tracing.span("finish.stream"):
@@ -215,12 +192,31 @@ class StreamingStuffer:
             tracing.count("restart_segments", self.n_seg)
             return b""
 
-    def _compact(self) -> None:
-        drop = (self.read_bit - self.base_bit) >> 3
-        if drop > 4096:
-            del self.acc.buf[:drop]
-            self.base_bit += 8 * drop
-            self.acc.bits -= 8 * drop
+
+class PinnedPieces:
+    """Page-locked host memory that a call's finished chunks are copied
+    into end to end, so that each piece stays where its copy left it until
+    the file is joined.  It grows to the power of two that holds what was
+    taken since the last :meth:`reset` (the pieces before stay in the old
+    buffer, which their views keep), and is reused after one: a piece
+    holds until the next reset."""
+
+    def __init__(self):
+        self._buf = None
+        self._used = 0
+
+    def reset(self) -> None:
+        self._used = 0
+
+    def take(self, n: int) -> torch.Tensor:
+        """The next ``n`` bytes, uint8."""
+        end = self._used + n
+        if self._buf is None or self._buf.numel() < end:
+            self._buf = torch.empty(1 << max(0, end - 1).bit_length(),
+                                    dtype=torch.uint8, pin_memory=True)
+        piece = self._buf[self._used:end]
+        self._used = end
+        return piece
 
 
 def _upload(slab: np.ndarray, device) -> torch.Tensor:
@@ -268,11 +264,11 @@ def read_rows(pixels, y0: int, n: int, width: int, color_type: ColorType,
 
 
 class HostCopy:
-    """Host copies of device results that wait only for the work queued
-    before a mark.  On a CUDA device the copy runs on a side stream behind
-    the mark's event, into page-locked buffers reused by name, so it does
-    not wait for work queued after the mark; on the CPU the tensors are
-    already on the host."""
+    """Host copies of device results, and device work on them, that wait
+    only for the work queued before a mark.  On a CUDA device both run on
+    a side stream behind the mark's event (the copies into page-locked
+    buffers reused by name), so they do not wait for work queued after
+    the mark; on the CPU the tensors are already on the host."""
 
     def __init__(self, device):
         device = torch.device(device)
@@ -289,6 +285,17 @@ class HostCopy:
         event.record()
         return event
 
+    @contextlib.contextmanager
+    def behind(self, ready):
+        """Queue the block's device work on the side stream behind
+        ``ready`` (a :meth:`mark`); on the CPU, as it comes."""
+        if self._side is None:
+            yield
+            return
+        with torch.cuda.stream(self._side):
+            self._side.wait_event(ready)
+            yield
+
     def fetch(self, ready, **tensors):
         """numpy copies of ``tensors`` once ``ready`` (a :meth:`mark`) has
         passed, in keyword order.  The arrays view the buffers named by
@@ -296,8 +303,7 @@ class HostCopy:
         if self._side is None:
             return [t.numpy() for t in tensors.values()]
         hosts = []
-        with torch.cuda.stream(self._side):
-            self._side.wait_event(ready)
+        with self.behind(ready):
             for name, t in tensors.items():
                 host = self._buffers.setdefault(name, PinnedBuffer()).take(
                     t.numel(), t.dtype).view(t.shape)
@@ -327,7 +333,8 @@ def _pack(blocks, dcdiff, valid, spec, params: EncodeParams, budget: int):
 def pack_chunks(chunks, spec, params: EncodeParams,
                 stuffer: StreamingStuffer, ladder):
     """Pack each chunk of one scan and yield the stuffer's non-empty
-    pieces, with a lookahead of one.
+    pieces, with a lookahead of one: chunk i's finish and its copy run on
+    the side stream behind chunk i's work, while chunk i+1's is queued.
 
     ``chunks`` yields ``(blocks, dcdiff, valid)`` per chunk, in scan order
     (:func:`_pack`'s inputs); ``ladder`` is the list of budget rungs still
@@ -354,11 +361,10 @@ def pack_chunks(chunks, spec, params: EncodeParams,
             while ladder[0] <= budget:
                 ladder.pop(0)
             inputs, budget, outs, ready = launch(inputs, ladder[0])
-        bits = int(meta[1])
-        # Only the words the chunk used, not the budget's capacity.
-        with tracing.span("sync.words"):
-            (words,) = copier.fetch(ready, words=outs[0][:(bits + 31) >> 5])
-        return stuffer.add_chunk(words.view(np.uint32), bits, lens)
+        # Every tensor the finish reads is alive until it returns, and it
+        # returns once the side stream has copied the chunk's bytes back.
+        with copier.behind(ready):
+            return stuffer.add_chunk(outs[0], int(meta[1]), lens)
 
     pending = None
     for inputs in chunks:
@@ -376,7 +382,8 @@ def pack_chunks(chunks, spec, params: EncodeParams,
 
 
 def iter_encode_interleaved_chunked(pixels, plan, params: EncodeParams,
-                                    chunk_mcu_rows: int = 64, ladder=None):
+                                    chunk_mcu_rows: int = 64, ladder=None,
+                                    pinned=None):
     """Bounded-memory interleaved scan encode, yielding final scan bytes
     (stuffed, RST markers inline) as MCU-row bands complete.
 
@@ -385,7 +392,9 @@ def iter_encode_interleaved_chunked(pixels, plan, params: EncodeParams,
     ``params``: the encoder's quantizers and packed tables on its device,
     where the chunks run; ``ladder``: the budget rungs to try, climbed in
     place (default: all of ``BUDGET_LADDER``), so that the caller can read
-    the last rung from it.  Only the last chunk is partial."""
+    the last rung from it; ``pinned``: a :class:`PinnedPieces` for the
+    finished bytes, as :class:`StreamingStuffer` takes it.  The pieces are
+    read-only views.  Only the last chunk is partial."""
     width, height = plan.width, plan.height
     color_type, config = plan.color_type, plan.config
     if config.mode() != "interleaved":
@@ -416,7 +425,8 @@ def iter_encode_interleaved_chunked(pixels, plan, params: EncodeParams,
             prev_tail = mcu[0, -pat:]
             yield mcu, dcdiff, None
 
-    stuffer = StreamingStuffer(spec.seg_blocks or total_blocks, total_blocks)
+    stuffer = StreamingStuffer(spec.seg_blocks or total_blocks, total_blocks,
+                               pinned)
     yield from pack_chunks(chunks(), spec, params, stuffer,
                            list(BUDGET_LADDER) if ladder is None else ladder)
 

@@ -17,7 +17,8 @@ pass reads the same blocks (encoder.rs:1086-1200).  On the device that is:
 2. **Pack.**  Each scan of the plan packs its store in chunks of
    ``pack_chunk`` blocks (``chunked.pack_chunks``: P1-P4 with the DC
    predecessor read from the store, the padding masked, lookahead one),
-   through a ``StreamingStuffer`` of its own.
+   each chunk finished on the device by a ``StreamingStuffer`` of the
+   scan's own.
 
 Transient device memory is O(chunk); the store is the image's blocks.
 """
@@ -44,12 +45,12 @@ PACK_CHUNK_BLOCKS = 1 << 20
 def encode_multipass_chunked(pixels, plan, huffman, params: EncodeParams,
                              chunk_mcu_rows: int = 64,
                              pack_chunk: int = PACK_CHUNK_BLOCKS,
-                             ladder=None) -> List[List[bytes]]:
+                             ladder=None, pinned=None) -> List[list]:
     """Encode a sequential or progressive image of any size, default or
     optimized tables, on the params' device with O(chunk) transient
     memory.  Returns the per-scan entropy payloads (stuffed, RST markers
     inline) in plan order, each the list of the stuffer's pieces that
-    joined make it.
+    joined make it (read-only views).
 
     ``pixels``: the whole array or a pull source (``chunked.read_rows``);
     ``plan``: the call's ``plan.Plan``, of a sequential or progressive
@@ -58,8 +59,9 @@ def encode_multipass_chunked(pixels, plan, huffman, params: EncodeParams,
     ``params``: the quantizers and default tables on the device;
     ``chunk_mcu_rows`` / ``pack_chunk``: the coefficient and pack chunk
     sizes (a component's pack chunk is never wider than the component,
-    rounded up to 256 blocks); ``ladder``: as
-    ``chunked.iter_encode_interleaved_chunked`` takes it."""
+    rounded up to 256 blocks); ``ladder``, ``pinned``: as
+    ``chunked.iter_encode_interleaved_chunked`` takes them (one
+    ``pinned`` for every scan's pieces)."""
     width, height = plan.width, plan.height
     color_type, config = plan.color_type, plan.config
     if config.mode() == "interleaved":
@@ -136,7 +138,7 @@ def encode_multipass_chunked(pixels, plan, huffman, params: EncodeParams,
                     dcdiff = torch.zeros(cb, dtype=torch.int32, device=device)
                 yield blocks, dcdiff, min(cb, B - b0)
 
-        stuffer = StreamingStuffer(spec.seg_blocks or B, B)
+        stuffer = StreamingStuffer(spec.seg_blocks or B, B, pinned)
         payloads.append(list(pack_chunks(chunks(), spec, params, stuffer,
                                          ladder)))
     return payloads

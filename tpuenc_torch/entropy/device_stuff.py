@@ -4,10 +4,13 @@ the encode device.
 Counterpart of ``tpuenc/entropy/device_stuff.py``.  The packer leaves one
 raw bit concatenation of every scan's restart segments (of every image's,
 on the single-program batch).  Every whole-image route and the
-single-program batch finish it here, on the stream's own device, in plain
-PyTorch (``tpuenc``'s version is XLA, with no Pallas kernel); the host
-finish (``device_encode._finish_scans_v2``, which copies the stream back
-and runs the native realigner) is the tests' reference.  The work is two
+single-program batch finish it here (:func:`device_stuff`), on the
+stream's own device, in plain PyTorch (``tpuenc``'s version is XLA, with
+no Pallas kernel); the chunked routes finish each chunk's stream here too
+(:func:`stuff_chunk`), carrying the last partial byte of a segment left
+open to the next chunk.  The host finishes (``device_encode._finish_scans_v2``,
+which copies the stream back and runs the native realigner, and
+``testing.host_stuffer``) are the tests' references.  The work is two
 passes over windows of the realigned bytes:
 
 1. **Realign** (:func:`realign`): realigned byte j lies in segment k (a
@@ -198,3 +201,96 @@ def device_stuff(buf_words: torch.Tensor, seg_bits: torch.Tensor,
         out.index_fill_(0, marker_at, 0xFF)
         out.index_copy_(0, marker_at + 1, rst)
         return out, seg_out_bytes, seg_out_bytes.sum()
+
+
+def stuff_chunk(words: torch.Tensor, carry: torch.Tensor, carry_bits: int,
+                piece_bits, tail_open: bool, marker_m):
+    """Finish one chunk of a scan's stream on its device: the chunked
+    routes' finish, one chunk at a time, with the passes of
+    :func:`device_stuff`.
+
+    The chunk holds pieces of one or more restart segments: the first
+    continues the segment the chunks before left open, each later one
+    starts a segment.  ``words``: int32, the chunk's packed stream (at
+    least its used words); ``carry``: int32 (1,) on the same device, the
+    open segment's last ``carry_bits`` (0..7) bits that the chunks before
+    did not finish, at the end of the word; ``piece_bits``, each piece's
+    bits in the chunk (host, int64 (P,)); ``tail_open``, whether the last
+    piece's segment goes on past the chunk (every other piece ends its
+    segment); ``marker_m``, the RST index written after each piece (host,
+    (P,)), -1 where none is.
+
+    The passes run over one source, the carry word and then the chunk's
+    words, so the first piece starts at source bit ``32 - carry_bits``.  A
+    piece that closes gives its bytes with the 1-padded last one, stuffed,
+    then its marker.  An open piece gives only its whole bytes, stuffed:
+    no byte of it is partial, so none is padded, and its last ``bits & 7``
+    bits stay on the device as the next chunk's carry.  Returns ``(out
+    uint8, total int64 0-d, next carry int32 (1,), next carry bits)``:
+    ``out[:total]`` is the chunk's finished bytes.  Nothing in it waits
+    for the device."""
+    # Per piece: its bits with the carry, realigned bytes, first source bit.
+    bits = np.array(piece_bits, np.int64)
+    P = bits.shape[0]
+    n_words = (int(bits.sum()) + 31) >> 5
+    bits[0] += carry_bits
+    nbytes = (bits + 7) >> 3
+    if tail_open:
+        nbytes[-1] = bits[-1] >> 3
+    host_end = np.cumsum(nbytes)
+    byte_start = host_end - nbytes
+    src_start = 32 - carry_bits + np.cumsum(bits) - bits
+    emit = (np.asarray(marker_m) >= 0).astype(np.int64)
+    marker_seg = np.flatnonzero(emit)
+    # The tables: byte_start, src_off, end_bit (every byte of an open piece
+    # is whole, so none is padded), byte_end, the bytes that are not
+    # stuffed zeros, twice the markers before; the marker pieces, their RST.
+    table = np.concatenate([
+        byte_start, src_start - 8 * byte_start, 8 * byte_start + bits,
+        host_end, nbytes + 2 * emit, 2 * (np.cumsum(emit) - emit),
+        marker_seg, 0xD0 + np.asarray(marker_m, np.int64)[marker_seg]])
+    dev = words.device
+    tab = torch.from_numpy(table).to(dev, non_blocking=True)
+    (byte_start, src_off, end_bit, byte_end, unstuffed,
+     markers_before) = tab[:6 * P].view(6, P)
+    marker_seg, rst = tab[6 * P:].view(2, -1)
+    src = torch.cat([carry, words[:n_words]])
+    n1 = int(host_end[-1])
+
+    out = torch.zeros(2 * n1 + 2 * P, dtype=torch.uint8, device=dev)
+    ff_at_end = torch.zeros(P, dtype=torch.int64, device=dev)
+    ff_before = torch.zeros((), dtype=torch.int64, device=dev)
+    for j0 in range(0, n1, _WINDOW):
+        j1 = min(n1, j0 + _WINDOW)
+        aligned, k = realign(src, byte_start, src_off, end_bit, j0, j1)
+        ff = stuff_markers(out, aligned, k, j0, ff_before, markers_before)
+        s0, s1 = np.searchsorted(host_end, (j0, j1), side="right")
+        ff_at_end[s0:s1] = ff.index_select(0, byte_end[s0:s1] - (j0 + 1))
+        ff_before = ff[-1]
+    stuffed = torch.diff(ff_at_end, prepend=ff_at_end.new_zeros(1))
+    seg_out_bytes = unstuffed + stuffed
+    marker_at = torch.cumsum(seg_out_bytes, 0).index_select(
+        0, marker_seg) - 2
+    out.index_fill_(0, marker_at, 0xFF)
+    out.index_copy_(0, marker_at + 1, rst.to(torch.uint8))
+
+    carry_next = int(bits[-1] & 7) if tail_open else 0
+    at = int(src_start[-1] + 8 * nbytes[-1])
+    return (out, seg_out_bytes.sum(), _carry_word(src, at, carry_next),
+            carry_next)
+
+
+def _carry_word(src: torch.Tensor, at: int, n: int) -> torch.Tensor:
+    """int32 (1,): source bits ``[at, at + n)`` of ``src`` (uint32 bits
+    MSB first in int32 words), n <= 7, at the end of the word."""
+    w, off = at >> 5, at & 31
+    if n == 0:
+        return src.new_zeros(1)
+    hi = src[w:w + 1].to(torch.int64).bitwise_and_(0xFFFFFFFF)
+    if off + n <= 32:
+        v = hi >> (32 - off - n)
+    else:  # the bits run into the next word
+        r = off + n - 32
+        lo = src[w + 1:w + 2].to(torch.int64).bitwise_and_(0xFFFFFFFF)
+        v = (hi << r) | (lo >> (32 - r))
+    return v.bitwise_and_((1 << n) - 1).to(torch.int32)

@@ -1,13 +1,15 @@
 """ctypes binding to the repository's native entropy library.
 
-Counterpart of ``tpuenc/entropy/native.py``.  The port needs three
-functions of ``native/entropy.cpp`` on its path: ``tpuenc_realign_segments``,
-which turns the device's bit-granular scan stream into finished scan bytes
-(per restart segment: shift to a byte boundary, 1-pad the tail,
-0xFF-stuff, insert RST markers), ``tpuenc_stuff_stream``, the bulk
-mid-segment flush of the chunked paths' ``StreamingStuffer``, and
-``tpuenc_build_k2``, the Annex K.2 table build of the two-pass
-optimized-table mode.
+Counterpart of ``tpuenc/entropy/native.py``.  The port binds three
+functions of ``native/entropy.cpp``: ``tpuenc_realign_segments``, which
+turns the device's bit-granular scan stream into finished scan bytes (per
+restart segment: shift to a byte boundary, 1-pad the tail, 0xFF-stuff,
+insert RST markers) for the striped encode (``shard.encode``) and the
+tests' reference host finish; ``tpuenc_stuff_stream``, the bulk
+mid-segment flush of the chunked routes' host finish, on no route since
+they finish each chunk on the device (``testing.host_stuffer`` keeps it as
+the tests' reference); and ``tpuenc_build_k2``, the Annex K.2 table build
+of the two-pass optimized-table mode.
 
 The library is built with g++ from the unchanged ``native/entropy.cpp``
 into the port's own build directory (``tpuenc_torch/_build``), under a
@@ -129,8 +131,8 @@ def realign_segments(data: bytes, seg_bits, bit_offset: int = 0) -> bytes:
 def stuff_stream(data, bit_off: int, nbytes: int) -> bytes:
     """Output bytes [bit_off, bit_off + 8*nbytes) of the raw bit stream
     ``data`` (a bytes-like buffer, MSB first), 0xFF-stuffed: no padding,
-    no markers.  The chunked paths' bulk mid-segment flush, chunk-parallel
-    in native code.  Raises ValueError for a range outside ``data`` and
+    no markers.  The host finish's bulk mid-segment flush
+    (``testing.host_stuffer``), chunk-parallel in native code.  Raises ValueError for a range outside ``data`` and
     RuntimeError if the native call fails (``tpuenc``'s binding returns
     None there)."""
     lib = _load()

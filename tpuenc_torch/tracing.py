@@ -51,11 +51,12 @@ The spans, where they open (each inside the function it measures):
     ``blocks``.
 ``sync.<what>``
     a blocking read of a device result: ``meta``, ``hist``, ``counts``,
-    ``bytes``, ``words``, ``rows``.
+    ``bytes``, ``rows``.
 ``finish.device``, ``finish.host``, ``finish.stream``
     the finish without its reads: the device finish's launches and the
     split into scans; the host realigner (the tests' reference finish, on
-    no route); the streaming stuffer.
+    no route); the chunked routes' finish of a chunk, its segment walk
+    and launches (and the check at a scan's end).
 ``assemble``
     the file's assembly: its segments and scan payloads gathered in one
     copy.
@@ -67,9 +68,10 @@ block on a CUDA device; ``ladder_retries``, one for each pack whose
 overflow sends it to the next rung; ``restart_segments``, one for each
 restart segment a finish closes (the device finish's, each scan's
 segments summed, and the streaming stuffer's, once a scan), so a scan
-with no restart interval counts one; ``assembled_bytes``, the bytes of
-each file that the assembly gathers (a stream's pieces are handed over as
-they are made, and count none).
+with no restart interval counts one; ``device_finished_chunks``, one for
+each chunk of a chunked route finished on the device; ``assembled_bytes``,
+the bytes of each file that the assembly gathers (a stream's pieces are
+handed over as they are made, and count none).
 """
 
 from __future__ import annotations
