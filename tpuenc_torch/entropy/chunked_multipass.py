@@ -21,6 +21,9 @@ pass reads the same blocks (encoder.rs:1086-1200).  On the device that is:
    scan's own.
 
 Transient device memory is O(chunk); the store is the image's blocks.
+The tracer sees phase 1 as one ``multipass.store`` span, with the store's
+bytes in the counter ``store_bytes``, and each scan of phase 2 as a
+``multipass.scan`` span.
 """
 
 from __future__ import annotations
@@ -77,32 +80,35 @@ def encode_multipass_chunked(pixels, plan, huffman, params: EncodeParams,
 
     # ----- Phase 1: coefficients (and symbol counts) into the store -----
     pack_chunks_of = [min(pack_chunk, -(-b // 256) * 256) for b in counts]
-    stores = [torch.zeros((64, -(-b // pc) * pc), dtype=torch.int16,
-                          device=device)
-              for b, pc in zip(counts, pack_chunks_of)]
-    offsets = [0] * len(components)
-    hist = None
-    chunk_mcu_rows = min(chunk_mcu_rows, num_rows)
-    for ci in range(-(-num_rows // chunk_mcu_rows)):
-        y0 = ci * chunk_mcu_rows * mcu_h
-        # Interior chunks are whole MCU rows; the last takes the rows left,
-        # which fn_cm pads and crops as the whole-image pipeline does.
-        n = min(chunk_mcu_rows * mcu_h, height - y0)
-        px = read_rows(pixels, y0, n, width, color_type, device)
-        streams = fn_cm(px, width, n, color_type, config, params.reciprocals,
-                        params.corrections)
-        # The DC before each component's chunk, a view into the store: the
-        # reference chains the counted differences over the whole
-        # component (encoder.rs:1100-1117).
-        dc_prev = ([store[0, o - 1] for store, o in zip(stores, offsets)]
-                   if ci > 0 else None)
-        for c, s in enumerate(streams):
-            stores[c][:, offsets[c]:offsets[c] + s.shape[1]] = s
-            offsets[c] += s.shape[1]
-        if config.optimize_huffman_table:
-            counted = scan_histograms(streams, components,
-                                      config.progressive_scans, dc_prev)
-            hist = counted if hist is None else hist + counted
+    with tracing.span("multipass.store"):
+        stores = [torch.zeros((64, -(-b // pc) * pc), dtype=torch.int16,
+                              device=device)
+                  for b, pc in zip(counts, pack_chunks_of)]
+        tracing.count("store_bytes", 128 * sum(s.shape[1] for s in stores))
+        offsets = [0] * len(components)
+        hist = None
+        chunk_mcu_rows = min(chunk_mcu_rows, num_rows)
+        for ci in range(-(-num_rows // chunk_mcu_rows)):
+            y0 = ci * chunk_mcu_rows * mcu_h
+            # Interior chunks are whole MCU rows; the last takes the rows
+            # left, which fn_cm pads and crops as the whole-image pipeline
+            # does.
+            n = min(chunk_mcu_rows * mcu_h, height - y0)
+            px = read_rows(pixels, y0, n, width, color_type, device)
+            streams = fn_cm(px, width, n, color_type, config,
+                            params.reciprocals, params.corrections)
+            # The DC before each component's chunk, a view into the store:
+            # the reference chains the counted differences over the whole
+            # component (encoder.rs:1100-1117).
+            dc_prev = ([store[0, o - 1] for store, o in zip(stores, offsets)]
+                       if ci > 0 else None)
+            for c, s in enumerate(streams):
+                stores[c][:, offsets[c]:offsets[c] + s.shape[1]] = s
+                offsets[c] += s.shape[1]
+            if config.optimize_huffman_table:
+                counted = scan_histograms(streams, components,
+                                          config.progressive_scans, dc_prev)
+                hist = counted if hist is None else hist + counted
     if tuple(offsets) != tuple(counts):
         raise RuntimeError(f"stored {offsets} blocks, want {counts}")
 
@@ -119,7 +125,7 @@ def encode_multipass_chunked(pixels, plan, huffman, params: EncodeParams,
 
     # ----- Phase 2: every scan packed in chunks of its store -----
     payloads = []
-    for stream_idx, spec, _ in plan.scans:
+    for scan, (stream_idx, spec, _) in enumerate(plan.scans):
         B = counts[stream_idx]
         store = stores[stream_idx]
         cb = pack_chunks_of[stream_idx]
@@ -138,7 +144,8 @@ def encode_multipass_chunked(pixels, plan, huffman, params: EncodeParams,
                     dcdiff = torch.zeros(cb, dtype=torch.int32, device=device)
                 yield blocks, dcdiff, min(cb, B - b0)
 
-        stuffer = StreamingStuffer(spec.seg_blocks or B, B, pinned)
-        payloads.append(list(pack_chunks(chunks(), spec, params, stuffer,
-                                         ladder)))
+        with tracing.span("multipass.scan", scan=scan):
+            stuffer = StreamingStuffer(spec.seg_blocks or B, B, pinned)
+            payloads.append(list(pack_chunks(chunks(), spec, params, stuffer,
+                                             ladder)))
     return payloads

@@ -60,6 +60,13 @@ The spans, where they open (each inside the function it measures):
 ``assemble``
     the file's assembly: its segments and scan payloads gathered in one
     copy.
+``multipass.store``, ``multipass.scan``
+    the chunked multipass route's two passes: every chunk's rows read,
+    transformed, written into the coefficient store and counted, launched
+    (once a call; ``upload``, ``transform`` and ``histograms`` inside);
+    one scan packed from its store in chunks and finished, with the int
+    ``scan`` (once a scan; ``pack``, ``sync.*`` and ``finish.stream``
+    inside).
 
 The counters: ``syncs``, one for every host-blocking device operation,
 which is each ``upload`` (a pageable host-to-device copy waits for the
@@ -71,7 +78,9 @@ segments summed, and the streaming stuffer's, once a scan), so a scan
 with no restart interval counts one; ``device_finished_chunks``, one for
 each chunk of a chunked route finished on the device; ``assembled_bytes``,
 the bytes of each file that the assembly gathers (a stream's pieces are
-handed over as they are made, and count none).
+handed over as they are made, and count none); ``store_bytes``, the bytes
+of the chunked multipass route's coefficient store, 128 a block of each
+component padded to its pack chunk.
 """
 
 from __future__ import annotations
