@@ -1163,6 +1163,213 @@ def test_all_ff_stream_on_cuda(dev):
     assert got["cpu"][0] == host
 
 
+# ---------------------------------------------------------------------------
+# The pixel upload: staged through one page-locked buffer a device.
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def small_buffer(monkeypatch):
+    """A page-locked buffer of 1,000,000 bytes, so that a small image's
+    uploads start again at its head every two or three, and a larger
+    array grows it: the test's uploads go through stagers of their own,
+    and the process's are back after it."""
+    from tpuenc_torch import upload
+
+    monkeypatch.setattr(upload, "BUFFER_BYTES", 1_000_000)
+    monkeypatch.setattr(upload, "_stagers", {})
+    return 1_000_000
+
+
+def _traced(fn):
+    from tpuenc_torch import tracing
+
+    tracing.enable()
+    try:
+        out = fn()
+        reqs = tracing.requests()
+    finally:
+        tracing.disable()
+    return out, reqs
+
+
+def test_staged_upload_equals_to(dev):
+    """At the real buffer size, an array larger than the buffer (which
+    grows it), a read-only one, a strided one and an empty one arrive as
+    ``.to()`` brings them; into a batch slot too; the caller may overwrite
+    the array as soon as the upload returns."""
+    from tpuenc_torch import upload
+
+    rng = np.random.default_rng(31)
+    size = upload.BUFFER_BYTES + 12_345
+    px = rng.integers(0, 256, (size // 3, 3), np.uint8)
+    want = torch.from_numpy(px).to(dev)
+    stager = upload.StagedUpload(dev)
+    got = stager.upload(px)
+    px[:] = 0  # the host read is over when upload returns
+    assert torch.equal(got, want)
+    ro = want.cpu().numpy()
+    ro.flags.writeable = False
+    assert torch.equal(stager.upload(ro), want)
+    assert torch.equal(stager.upload(ro[:, ::2]), want[:, ::2])
+    assert stager.upload(ro[:0]).shape == (0, 3)
+    slots = torch.zeros((2, *ro.shape), dtype=torch.uint8, device=dev)
+    stager.upload_into(slots[1], ro)
+    assert torch.equal(slots[1], want) and not slots[0].any()
+    with pytest.raises(ValueError):
+        stager.upload_into(slots[0][:-1], ro)
+
+
+def test_staged_upload_behind_queued_work(dev, small_buffer):
+    """Uploads queued behind long work on another current stream, into
+    memory just freed there, and back to back through one buffer: each
+    arrives whole, and each returns with its host array free."""
+    from tpuenc_torch import upload
+
+    rng = np.random.default_rng(32)
+    arrays = [rng.integers(0, 256, 1_234_567, np.uint8) for _ in range(4)]
+    stager = upload.StagedUpload(dev)
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        got = []
+        for a in arrays:
+            busy = torch.full((1_234_567,), 7, dtype=torch.uint8, device=dev)
+            torch.cuda._sleep(5_000_000)
+            busy.add_(1)
+            del busy  # freed on ``side`` with its work still queued
+            kept = a.copy()
+            got.append((stager.upload(a), kept))
+            a[:] = 0
+    for t, k in got:
+        assert np.array_equal(t.cpu().numpy(), k)
+
+
+def test_staged_memory_outlives_its_readers(dev, small_buffer):
+    """A staged tensor freed while work queued on the current stream has
+    yet to read it: the next uploads, whose copies wait for no compute
+    work, do not write over its memory before that work has read it."""
+    from tpuenc_torch import upload
+
+    rng = np.random.default_rng(33)
+    arrays = [rng.integers(0, 256, 1_234_567, np.uint8) for _ in range(6)]
+    reads = []
+    for a in arrays:
+        t = upload.to_device(a, dev)
+        torch.cuda._sleep(5_000_000)  # the current stream falls behind
+        reads.append(t.clone())
+        del t  # freed with the clone still queued
+    for r, a in zip(reads, arrays):
+        assert np.array_equal(r.cpu().numpy(), a)
+
+
+ROUTE_CASES = {
+    # name: (encoder settings, the image's shape, a batch of n, the chunked
+    # routes' block limit, last_encode_path)
+    "whole_image": ({}, (300, 500, 3), 0, None, "device-v2"),
+    "fused": ({"fused": True}, (300, 500, 3), 0, None, "device-v2-fused"),
+    "progressive_optimized": ({"scans": 4, "opt": True}, (300, 500, 3), 0,
+                              None, "device-v2"),
+    "batch_single": ({}, (300, 500, 3), 3, None, "device-batch"),
+    "batch_per_image": ({"restart": 11}, (300, 500, 3), 3, None,
+                        "device-batch-per-image"),
+    "chunked": ({"restart": 7}, (2100, 264, 4), 0, 1000, "device-chunked"),
+    "chunked_multipass": ({"opt": True}, (2100, 264, 4), 0, 1000,
+                          "device-chunked-multipass"),
+}
+
+
+def _route_call(name, device):
+    """(the encoder, a function that encodes the case's pixels with it)."""
+    from tpuenc_torch import ColorType
+
+    kw, shape, n, _, _ = ROUTE_CASES[name]
+    h, w, c = shape
+    ct = ColorType.RGB if c == 3 else ColorType.CMYK_AS_YCCK
+    enc = _batch_encoder(device, 90, kw)
+    if c == 4:
+        enc = _chunked_encoder(device, restart=kw.get("restart", 0),
+                               opt=kw.get("opt", False))
+    if n:
+        return enc, lambda imgs: enc.encode_batch(imgs, w, h, ct)
+    return enc, lambda imgs: [enc.encode(imgs[0], w, h, ct)]
+
+
+@pytest.mark.parametrize("name", sorted(ROUTE_CASES))
+def test_routes_stage_their_pixels(dev, small_buffer, name, monkeypatch):
+    """Each route on the card: the files equal the CPU path's (which
+    stages nothing), ``upload_slabs`` counts each pixel upload (an image
+    or a chunk), the caller's arrays may be overwritten as soon as the
+    call returns, and the device's buffer is reused by the next call."""
+    from tpuenc_torch import upload
+    from tpuenc_torch import plan as planning
+
+    kw, shape, n, limit, path = ROUTE_CASES[name]
+    if limit is not None:
+        monkeypatch.setattr(planning, "DEVICE_BLOCK_LIMIT", limit)
+    rng = np.random.default_rng(len(name))
+    imgs = [rng.integers(0, 256, shape, np.uint8) for _ in range(n or 1)]
+    want = _route_call(name, "cpu")[1]([im.copy() for im in imgs])
+    enc, call = _route_call(name, dev)
+    got, (req,) = _traced(lambda: call(imgs))
+    for im in imgs:
+        im[:] = 0  # overwritten as soon as the call returns
+    assert enc.last_encode_path == path
+    assert got == want
+    # an image each, or a chunk of 64 MCU rows of 16 pixel rows each
+    staged = len(imgs) if limit is None else -(-shape[0] // 1024)
+    assert req.counters["upload_slabs"] == staged
+    buffer = upload.stager(dev)._buffer.data_ptr()
+    others = [rng.integers(0, 256, shape, np.uint8) for _ in imgs]
+    want = _route_call(name, "cpu")[1]([im.copy() for im in others])
+    assert call(others) == want
+    assert upload.stager(dev)._buffer.data_ptr() == buffer
+
+
+def test_two_encoders_alternate_on_one_buffer(dev, small_buffer):
+    """Two encoders' calls interleaved, and back-to-back calls on one,
+    each give the CPU path's file: both stage through the device's one
+    buffer, which is page-locked and stays the same."""
+    from tpuenc_torch import ColorType, upload
+
+    rng = np.random.default_rng(41)
+    imgs = [rng.integers(0, 256, (300, 500, 3), np.uint8) for _ in range(4)]
+    cpu = _batch_encoder("cpu", 90, {})
+    want = [cpu.encode(im, 500, 300, ColorType.RGB) for im in imgs]
+    a, b = _batch_encoder(dev, 90, {}), _batch_encoder(dev, 90, {})
+    got = []
+    for i, im in enumerate(imgs * 2):
+        got.append((a if i % 3 else b).encode(im, 500, 300, ColorType.RGB))
+    assert got == want * 2
+    stager = upload.stager(dev)
+    assert upload.stager(torch.device(dev)) is stager
+    assert len(upload._stagers) == 1
+    assert stager._buffer.is_pinned()
+    assert stager._buffer.numel() == small_buffer
+
+
+def test_row_source_may_reuse_its_buffer(dev, small_buffer):
+    """A pull source that refills one host buffer for every chunk: each
+    upload has read it before the next pull, so the stream's file is
+    ``encode``'s."""
+    from tpuenc_torch import ColorType
+
+    rng = np.random.default_rng(43)
+    w, h = 200, 120
+    px = rng.integers(0, 256, (h, w, 3), np.uint8)
+    want = _chunked_encoder("cpu", restart=3).encode(px, w, h, ColorType.RGB)
+    buf = np.empty((h, w, 3), np.uint8)
+
+    def rows(y0, n):
+        buf[:n] = px[y0:y0 + n]
+        buf[n:] = 0
+        return buf[:n]
+
+    enc = _chunked_encoder(dev, restart=3)
+    got, (req,) = _traced(lambda: b"".join(enc.encode_stream(
+        rows, w, h, ColorType.RGB, chunk_mcu_rows=2)))
+    assert got == want
+    assert req.counters["upload_slabs"] == -(-h // 32)  # one a chunk
+
+
 # The striped encode (tpuenc_torch.shard) over 2 gloo ranks, each
 # computing on cuda:0: an interleaved case and an optimized one.
 SHARD_CASES = [

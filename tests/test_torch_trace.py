@@ -216,6 +216,40 @@ def test_assembled_bytes_are_the_files_bytes(request, route, settings, call,
         assert "assembled_bytes" not in req.counters
 
 
+# A warm call's file (the first 16 hex digits of the sha256 of its bytes,
+# a batch's files joined) and its ``syncs``, as the port gave them with a
+# pageable upload: staging the pixels changes neither.
+PINNED = {
+    "device-v2": ("e0d88085bd88acd8", 4),
+    "progressive-optimized": ("c8c1a95559936185", 7),
+    "batch": ("e3c5b2574619288f", 5),
+    "chunked": ("e0d88085bd88acd8", 4),
+    "chunked-multipass": ("c8c1a95559936185", 40),
+    "stream": ("e0d88085bd88acd8", 12),
+}
+
+
+@pytest.mark.parametrize("route,settings,call,entry,path,stages", ROUTES,
+                         ids=IDS)
+def test_cpu_routes_keep_their_bytes_and_syncs_and_stage_nothing(
+        request, route, settings, call, entry, path, stages):
+    """On the CPU no route stages a slab (``upload_slabs`` counts 0), every
+    route's bytes are those of the pageable upload, and each ``upload``
+    still counts one of the call's ``syncs``."""
+    import hashlib
+
+    _setup(request, route)
+    enc = _encoder(**settings)
+    call(enc)
+    tracing.enable()
+    out = call(enc)
+    (req,) = tracing.requests()
+    files = out if isinstance(out, list) else [out]
+    digest = hashlib.sha256(b"".join(files)).hexdigest()[:16]
+    assert (digest, req.counters["syncs"]) == PINNED[route]
+    assert req.counters.get("upload_slabs", 0) == 0
+
+
 def test_cold_calls_put_their_table_uploads_under_plan():
     tracing.enable()
     _plain(_encoder())

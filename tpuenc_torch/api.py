@@ -58,6 +58,7 @@ from .plan import (
     Plan,
     make_plan,
 )
+from . import upload
 
 __all__ = ["Encoder", "ImageBuffer"]
 
@@ -621,9 +622,7 @@ class Encoder:
             return scans
 
         with tracing.span("upload"):
-            if not pixels.flags.writeable:
-                pixels = pixels.copy()
-            px = torch.from_numpy(np.ascontiguousarray(pixels)).to(self.device)
+            px = upload.to_device(pixels, self.device)
         pinned = self._pinned_buffer()
         if config.optimize_huffman_table:
             # Two passes (tpuenc/api.py:776-825): coefficients and

@@ -40,6 +40,7 @@ from .. import tracing
 from ..core import errors
 from ..core.types import ColorType
 from ..kernels.pipeline import fn_cm
+from .. import upload
 from .device_encode import BUDGET_LADDER, EncodeParams, PinnedBuffer
 from .device_stuff import stuff_chunk
 from .pallas_pack import dc_diffs_from_dc, device_scan_pack
@@ -220,11 +221,9 @@ class PinnedPieces:
 
 
 def _upload(slab: np.ndarray, device) -> torch.Tensor:
-    """One chunk's host rows on ``device`` (a pageable copy)."""
+    """One chunk's host rows on ``device`` (``upload.to_device``)."""
     with tracing.span("upload"):
-        if not slab.flags.writeable:  # from_numpy warns on read-only arrays
-            slab = slab.copy()
-        return torch.from_numpy(np.ascontiguousarray(slab)).to(device)
+        return upload.to_device(slab, device)
 
 
 def read_rows(pixels, y0: int, n: int, width: int, color_type: ColorType,

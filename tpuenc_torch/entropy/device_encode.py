@@ -37,6 +37,7 @@ import torch
 
 from .. import tracing
 from ..core.types import EncoderConfig
+from .. import upload
 from . import native
 from .device_pack import ScanSpec
 from .device_stuff import device_stuff as stuff_on_device
@@ -513,18 +514,20 @@ def device_encode_batch_single(images, plan, params: EncodeParams,
     the batch's ``plan.Plan``, whose route must be the single program,
     "device-batch", made for ``len(images)`` images (else ``ValueError``);
     ``pinned``: a :class:`PinnedBuffer` for the copy of the finished bytes
-    on a CUDA device, None on the CPU.  Each image is uploaded into its slot of one (N, H, W[, C]) tensor; one coefficient
-    pass over the batch (K1 once per component), the DC differences and K2
-    over all N x mcu_count x blocks_per_mcu blocks, with restart segments
-    of the interval or of one image, so the DC predictor resets at every
-    image's first block, and one P2-P4 merge, at each rung of the batch's
-    own ladder (memoised under the batch's size).  Then one ``meta`` read
-    and one device finish over the whole stream
-    (:func:`_finish_scans_device`), each image a "scan" of its segments,
-    so no RST marker falls between images and each image's markers count
-    from 0.  It never runs K8.  Returns ``(per-image [scan bytes],
-    budget)``, each image's scan a view of the finish's output
-    (:func:`_finish_scans_device`)."""
+    on a CUDA device, None on the CPU.  Each image is uploaded into its
+    slot of one (N, H, W[, C]) tensor (``upload.copy_into``), back to back
+    through the device's page-locked buffer, each image's host copy beside
+    the DMA of the one before; one coefficient pass over the batch (K1
+    once per component), the DC differences and K2 over all N x mcu_count
+    x blocks_per_mcu blocks, with restart segments of the interval or of
+    one image, so the DC predictor resets at every image's first block,
+    and one P2-P4 merge, at each rung of the batch's own ladder (memoised
+    under the batch's size).  Then one ``meta`` read and one device finish
+    over the whole stream (:func:`_finish_scans_device`), each image a
+    "scan" of its segments, so no RST marker falls between images and each
+    image's markers count from 0.  It never runs K8.  Returns
+    ``(per-image [scan bytes], budget)``, each image's scan a view of the
+    finish's output (:func:`_finish_scans_device`)."""
     from ..kernels.pipeline import fn_cm
     from ..plan import SINGLE_PROGRAM
 
@@ -543,7 +546,7 @@ def device_encode_batch_single(images, plan, params: EncodeParams,
                      device=params.dc.device)
     for i, image in enumerate(images):
         with tracing.span("upload"):
-            px[i].copy_(torch.from_numpy(image))
+            upload.copy_into(px[i], image)
     (stream,) = fn_cm(px, *args, params.reciprocals, params.corrections,
                       batched=True)
     key = ("batch", *args, n, px.device.type)

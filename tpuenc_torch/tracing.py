@@ -39,7 +39,8 @@ The spans, where they open (each inside the function it measures):
     the per-call set-up: tables, route and scan plan.
 ``upload``
     a host-to-device copy: the pixels, the slots of a batch, a chunk's
-    rows, small tables.
+    rows (on a CUDA device through ``upload.StagedUpload``'s page-locked
+    buffer), small tables.
 ``transform``
     the coefficient stage, launched (``kernels.pipeline.fn_cm``,
     ``fn_cm_samples``).
@@ -69,18 +70,22 @@ The spans, where they open (each inside the function it measures):
     inside).
 
 The counters: ``syncs``, one for every host-blocking device operation,
-which is each ``upload`` (a pageable host-to-device copy waits for the
-stream's queued work) and each ``sync.*`` span, counted as they would
-block on a CUDA device; ``ladder_retries``, one for each pack whose
-overflow sends it to the next rung; ``restart_segments``, one for each
-restart segment a finish closes (the device finish's, each scan's
-segments summed, and the streaming stuffer's, once a scan), so a scan
-with no restart interval counts one; ``device_finished_chunks``, one for
-each chunk of a chunked route finished on the device; ``assembled_bytes``,
-the bytes of each file that the assembly gathers (a stream's pieces are
-handed over as they are made, and count none); ``store_bytes``, the bytes
-of the chunked multipass route's coefficient store, 128 a block of each
-component padded to its pack chunk.
+which is each ``upload`` (the staged upload waits on the host for the
+DMAs from its page-locked buffer when it starts again from the buffer's
+head; a table's small copy is pageable) and each ``sync.*`` span, counted
+as they would block on a CUDA device; ``upload_slabs``, one for each host
+array staged through the page-locked buffer on a CUDA device, one host
+copy and one DMA: an image, a batch's slot or a chunk's rows (none on the
+CPU, nor for rows already on the device); ``ladder_retries``, one for
+each pack whose overflow sends it to the next rung; ``restart_segments``,
+one for each restart segment a finish closes (the device finish's, each
+scan's segments summed, and the streaming stuffer's, once a scan), so a
+scan with no restart interval counts one; ``device_finished_chunks``, one
+for each chunk of a chunked route finished on the device;
+``assembled_bytes``, the bytes of each file that the assembly gathers (a
+stream's pieces are handed over as they are made, and count none);
+``store_bytes``, the bytes of the chunked multipass route's coefficient
+store, 128 a block of each component padded to its pack chunk.
 """
 
 from __future__ import annotations
